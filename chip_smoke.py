@@ -1,0 +1,617 @@
+"""Drive the PyTorch/CUDA port (esvo_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+1. the card: name, count and power limit;
+2. build the three hand-written CUDA kernels from esvo_tpu_torch/csrc
+   (nvcc, sm_90a, one process per source, all at once);
+3. each kernel against its plain PyTorch twin on the card, on the same
+   inputs, at the rpg (240x180, N=1000) and DSEC (640x480, N=10000)
+   shapes, with its time, the twin's, a library call's where one exists,
+   and its roofline bound;
+4. the WORKING mapping cycle (MappingCycle: render -> estimate ->
+   rebuild) on synthetic scenes at rpg and DSEC scale, with per-stage
+   times, the kernels' launch counts and the error against ground truth;
+   the rpg cycle again through the CPU port (the twins) as the reference;
+5. the kernel table as one JSON line; the last line is the result.
+
+Any failed check raises, and the script then exits non-zero. Without a
+CUDA device it exits non-zero before printing any result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity
+
+from esvo_tpu_torch import convert
+from esvo_tpu_torch.geometry.camera import (PinholeParams, StereoRig,
+                                            make_camera)
+from esvo_tpu_torch.geometry.se3 import se3_exp, se3_inverse
+from esvo_tpu_torch.io.events import EventArray, frame_events
+from esvo_tpu_torch.io.synthetic import (SyntheticScene, interpolate_gt_pose,
+                                         make_scene, simulate_stereo_events)
+from esvo_tpu_torch.mapping import depth_refinement as dr
+from esvo_tpu_torch.mapping.regularization import regularize
+from esvo_tpu_torch.ops import _build, lm, patches, remap
+from esvo_tpu_torch.runtime.config import MappingCycleConfig
+from esvo_tpu_torch.runtime.system import MappingCycle
+from esvo_tpu_torch.surface import time_surface as tsf
+
+# published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+F32 = torch.float32
+
+# configs/rpg.yaml and configs/dsec.yaml, the sections the cycle reads
+RPG = dict(
+    surface=dict(decay_sec=0.03, ignore_polarity=True,
+                 median_blur_kernel_size=1, mode="backward"),
+    bm=dict(patch_size_x=15, patch_size_y=7, min_disparity=1,
+            max_disparity=40, step=1, zncc_threshold=0.1, up_down=False,
+            smooth_time_surface=False),
+    depth=dict(patch_size_x=15, patch_size_y=7, ls_norm="Tdist",
+               td_nu=2.1897, td_scale=16.6397, max_iteration=10),
+    fusion=dict(fusion_radius=0),
+    mapping=dict(inv_depth_min_range=0.2, inv_depth_max_range=2.0,
+                 residual_vis_threshold=20.0, std_var_vis_threshold=0.015,
+                 age_max_range=10, age_vis_threshold=1,
+                 fusion_strategy="CONST_POINTS", max_fusion_frames=40,
+                 max_fusion_points=5000, denoising=True, regularization=True,
+                 process_event_num=1000))
+DSEC = dict(
+    surface=RPG["surface"],
+    bm=dict(RPG["bm"], min_disparity=0, max_disparity=150,
+            smooth_time_surface=True),
+    depth=dict(RPG["depth"], td_nu=2.182, td_scale=17.277,
+               regularization_radius=20, regularization_min_neighbours=32,
+               regularization_min_close_neighbours=32),
+    fusion=dict(fusion_radius=1),
+    mapping=dict(inv_depth_min_range=0.001, inv_depth_max_range=0.25,
+                 residual_vis_threshold=30.0, std_var_vis_threshold=1.0,
+                 age_max_range=10, age_vis_threshold=1,
+                 fusion_strategy="CONST_FRAMES", max_fusion_frames=5,
+                 max_fusion_points=20000, denoising=False,
+                 regularization=True, process_event_num=10000))
+
+# Two stereo rigs with plumb_bob distortion and a rectification rotation
+# per camera, so the rectification maps (kernel K3's input) are far from
+# the identity: (W, H, K, D, per-camera rectification angles about y and
+# x, rectified focal length, baseline).
+RIGS = {
+    "rpg": (240, 180, (201.5, 200.8, 119.3, 90.4),
+            (-0.28, 0.07, 1.5e-3, -8e-4), ((0.012, -0.008), (-0.010, -0.008)),
+            195.0, 0.1),
+    "dsec": (640, 480, (560.0, 559.0, 318.6, 241.2),
+             (-0.09, 0.09, 1e-4, -2e-4), ((0.008, 0.004), (-0.006, 0.004)),
+             550.0, 0.6),
+}
+
+# Synthetic scenes: edge points, their scale (metres; the DSEC scene is
+# pushed out to 5-12 m, inside that preset's inverse-depth range), event
+# threshold (px), sync ticks, frame capacity. The motion has a 1 s period
+# and is simulated in 10 steps per tick, so every tick carries thousands
+# of events (enough to pass the rpg preset's denoiser and fill N).
+SCENES = {"rpg": dict(points=6000, scale=1.0, threshold=0.5, ticks=20,
+                      cap=8000, seed=1),
+          "dsec": dict(points=12000, scale=4.0, threshold=1.0, ticks=15,
+                       cap=40000, seed=2)}
+TICK = 0.01            # 100 Hz surfaces
+MAP_EVERY = 5          # 20 Hz mapping
+
+
+def log(obj) -> None:
+    print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean time per call of fn between CUDA events, after warm-up: the
+    caller's view, host launch gaps included."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_us(prof) -> float:
+    """Device time (us) of every kernel and copy in a profile."""
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            total += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+    return total
+
+
+def timed(fn, iters: int) -> dict:
+    """ms: device time per call, from the profiler's kernel records (the
+    card's own clock, without host gaps); call_ms: per call between CUDA
+    events. Where the profiler records no device time, ms is call_ms and
+    `timing` says so."""
+    call = cuda_ms(fn, iters)
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev = _device_us(prof) / 1e3 / iters
+    if dev > 0:
+        return dict(ms=dev, call_ms=call, timing="profiler")
+    return dict(ms=call, call_ms=call, timing="cuda-events")
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """Least time on the card (ms) and what sets it."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / FP32_FLOPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+# ---------------------------------------------------------------------------
+# rigs and scenes
+# ---------------------------------------------------------------------------
+
+def _rot(ay: float, ax: float) -> np.ndarray:
+    cy, sy, cx, sx = math.cos(ay), math.sin(ay), math.cos(ax), math.sin(ax)
+    Ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    Rx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+    return Ry @ Rx
+
+
+def make_rig(name: str, device) -> StereoRig:
+    W, H, (fx, fy, cx, cy), D, angles, f, b = RIGS[name]
+    kw = dict(dtype=F32, device=device)
+    K = torch.tensor([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], **kw)
+    cams = []
+    for (ay, ax), tx in zip(angles, (0.0, -f * b)):
+        P = torch.tensor([[f, 0, W / 2, tx], [0, f, H / 2, 0], [0, 0, 1, 0]],
+                         **kw)
+        cams.append(make_camera(PinholeParams(
+            K=K, D=torch.tensor(D, **kw), R=torch.tensor(_rot(ay, ax), **kw),
+            P=P, width=W, height=H, model="plumb_bob")))
+    T = torch.eye(4, **kw)
+    T[0, 3] = -b
+    return StereoRig(left=cams[0], right=cams[1], T_right_left=T,
+                     baseline=torch.tensor(b, **kw))
+
+
+def _to_raw(ev: EventArray, inv_map: np.ndarray, mask: np.ndarray):
+    """Events simulated at rectified pixels -> the raw sensor pixels the
+    rectification map samples there (drops pixels off the sensor)."""
+    H, W = mask.shape
+    raw = inv_map[ev.y, ev.x]
+    xr = np.floor(raw[:, 0]).astype(np.int32)
+    yr = np.floor(raw[:, 1]).astype(np.int32)
+    keep = mask[ev.y, ev.x] & (xr >= 0) & (xr < W) & (yr >= 0) & (yr < H)
+    return EventArray(t=ev.t[keep], x=xr[keep], y=yr[keep], p=ev.p[keep])
+
+
+def make_stream(name: str, rig: StereoRig):
+    """Synthetic scene, raw event frames for both cameras, sync ticks."""
+    s = SCENES[name]
+    W, H = rig.left.width, rig.left.height
+    rng = np.random.default_rng(s["seed"])
+    n_ticks = s["ticks"]
+    duration = (n_ticks + 1) * TICK
+    scene = make_scene(rng, num_points=s["points"], duration=duration,
+                       steps=10 * (n_ticks + 1) + 1, motion_scale=1.0,
+                       period=1.0)
+    poses = scene.traj_poses.copy()
+    poses[:, :3, 3] *= s["scale"]     # a uniform scale keeps projections
+    scene = SyntheticScene(points=scene.points * s["scale"],
+                           traj_times=scene.traj_times, traj_poses=poses)
+    cams = (rig.left, rig.right)
+    evs = simulate_stereo_events(
+        scene, *[c.params.P.double().cpu().numpy() for c in cams], W, H,
+        pixel_threshold=s["threshold"], rng=rng)
+    evs = [_to_raw(e, c.inv_map.cpu().numpy(), c.mask.cpu().numpy())
+           for e, c in zip(evs, cams)]
+    ticks = np.arange(1, n_ticks + 1) * TICK
+    frames = [frame_events(e, ticks, s["cap"]) for e in evs]
+    return scene, ticks, frames
+
+
+# ---------------------------------------------------------------------------
+# kernels against their twins
+# ---------------------------------------------------------------------------
+
+def _times(err, kernel, plain, library, iters, bound_ms, bound_by) -> dict:
+    k = timed(kernel, iters)
+    p = timed(plain, max(1, iters // 10))
+    lib = timed(library, iters) if library is not None else None
+    return dict(max_abs_err=err, kernel_ms=k["ms"], plain_ms=p["ms"],
+                library_ms=None if lib is None else lib["ms"],
+                bound_ms=bound_ms, bound_by=bound_by, call_ms=k["call_ms"],
+                plain_call_ms=p["call_ms"],
+                library_call_ms=None if lib is None else lib["call_ms"],
+                timing=k["timing"])
+
+
+def check_remap(rig: StereoRig, iters: int = 200) -> dict:
+    cam = rig.left
+    H, W = cam.height, cam.width
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    img = torch.randint(0, 256, (H, W), generator=gen, device="cuda").to(F32)
+    m = cam.inv_map.contiguous()
+    got = remap.remap(img, m)
+    want = remap.remap_plain(img, m, 0.0)
+    err = float((got - want).abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"K3 remap differs from its twin by {err}")
+    grid = torch.stack([2 * m[..., 0] / (W - 1) - 1,
+                        2 * m[..., 1] / (H - 1) - 1], -1)[None]
+    lib = lambda: F.grid_sample(img[None, None], grid, mode="bilinear",
+                                padding_mode="zeros", align_corners=True)
+    # per pixel: map 8 B in, image 4 B in, 4 B out; 15 flops (2 floors'
+    # fractions, 2 complements, 4 weights, 4 products, 3 sums)
+    b, by = bound(H * W * (4 + 8 + 4), H * W * 15)
+    return _times(err, lambda: remap.remap(img, m),
+                  lambda: remap.remap_plain(img, m, 0.0), lib, iters, b, by)
+
+
+def check_patches(rig: StereoRig, n: int, iters: int = 200) -> dict:
+    H, W = rig.left.height, rig.left.width
+    h, w = 24, 32
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    img = torch.rand((H, W), generator=gen, device="cuda") * 255
+    uy = torch.randint(-4, H - h + 4, (n,), generator=gen, device="cuda",
+                       dtype=torch.int32)          # some starts clamp
+    ux = torch.randint(-4, W - w + 4, (n,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    got = patches.slice_patches(img, uy, ux, h, w)
+    want = patches.slice_patches_plain(img, uy, ux, h, w)
+    if not torch.equal(got, want):
+        raise AssertionError("K1 slice_patches is not bit-exact")
+    rr = (torch.clamp(uy.long(), 0, H - h)[:, None, None]
+          + torch.arange(h, device="cuda")[None, :, None])
+    cc = (torch.clamp(ux.long(), 0, W - w)[:, None, None]
+          + torch.arange(w, device="cuda")[None, None, :])
+    b, by = bound(H * W * 4 + n * 8 + n * h * w * 4, 0)
+    return _times(float((got - want).abs().max()),
+                  lambda: patches.slice_patches(img, uy, ux, h, w),
+                  lambda: patches.slice_patches_plain(img, uy, ux, h, w),
+                  lambda: img[rr, cc], iters, b, by)
+
+
+def lm_world(rig: StereoRig, cfg: MappingCycleConfig, n: int, disp: int,
+             seed: int):
+    """The depth solve's kernel inputs on a textured stereo pair whose
+    right surface is the left one shifted by `disp` pixels plus noise of
+    half an 8-bit level (so no residual is exactly zero)."""
+    rng = np.random.default_rng(seed)
+    H, W = rig.left.height, rig.left.width
+    f = float(rig.left.params.P[0, 0])
+    base = rng.uniform(0, 255, (H, W + 2 * disp + 64))
+    k = np.ones(5) / 5
+    base = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 1, base)
+    ts_l = base[:, 32:32 + W]
+    ts_r = base[:, 32 + disp:32 + disp + W] + rng.uniform(-0.5, 0.5, (H, W))
+    coords = np.stack([rng.uniform(30 + disp, W - 30, n),
+                       rng.uniform(20, H - 20, n)], 1)
+    d_true = disp / (f * float(rig.baseline))
+    d_init = d_true * rng.uniform(0.85, 1.15, n)
+    T_lv = se3_exp(torch.tensor(rng.normal(0, 2e-3, (n, 6)), dtype=F32))
+    t = lambda a: torch.tensor(a, dtype=F32, device="cuda")
+    return dr.window_problem(t(coords), T_lv.cuda(), t(d_init), t(ts_l),
+                             t(ts_r), rig, cfg.depth)
+
+
+def check_lm(rig: StereoRig, cfg: MappingCycleConfig, n: int, disp: int,
+             iters: int = 20) -> dict:
+    args, kw = lm_world(rig, cfg, n, disp, seed=5)
+    work = torch.zeros(3, dtype=torch.int64, device="cuda")
+    got = lm.lm_solve(*args, **kw, work=work)
+    want = lm.lm_solve_plain(*args, **kw)
+    d_k, c_k, j_k = (a.cpu().numpy() for a in got)
+    d_t, c_t, j_t = (a.cpu().numpy() for a in want)
+    # The accept test (cost_try < cost) races at float32 rounding: the
+    # kernel's FMAs and warp-shuffle sums round otherwise than the twin's
+    # ops, and a few events take another accept/reject path (tests/
+    # test_torch_lm.py measures the same between the JAX package's own two
+    # paths). So each tolerance must hold on at least 98% of the events.
+    both = (d_k > 1e-3) & (d_t > 1e-3)
+    agree = ((d_k > 1e-3) == (d_t > 1e-3)).mean()
+    close = both & np.isclose(d_k, d_t, rtol=2e-4, atol=2e-5)
+    cost_ok = close & np.isclose(c_k, c_t, rtol=2e-2, atol=1e-3)
+    jtj_ok = close & np.isclose(j_k, j_t, rtol=2e-2, atol=0)
+    shares = dict(validity=agree, inv_depth=close.sum() / both.sum(),
+                  cost=cost_ok.sum() / both.sum(),
+                  jtj=jtj_ok.sum() / both.sum())
+    if not (agree > 0.98 and min(shares.values()) >= 0.98):
+        raise AssertionError(f"K2 differs from its twin: {shares}")
+    evals, in_bounds, trips = (int(v) for v in work.cpu())
+    P = kw["wy"] * kw["wx"]
+    # flops per patch pixel, counted from lm.cu: two bilinear samples with
+    # their d-derivatives (36) per evaluation; the Tdist weights and cost
+    # (11) per in-bounds evaluation; 7 per scale fixed-point trip; g and h
+    # (4) per LM step; J^T J (2) once
+    flops = P * (36 * evals + 11 * in_bounds + 7 * trips + 4 * (evals - n)
+                 + 2 * n)
+    Wy, Wx = kw["Wy"], kw["Wx"]
+    nbytes = 2 * n * Wy * Wx * 4 + n * (3 + 4 + 12) * 4 + 33 * 4 + 3 * n * 4
+    b, by = bound(nbytes, flops)
+    res = _times(float(np.abs(d_k[both] - d_t[both]).max()),
+                 lambda: lm.lm_solve(*args, **kw),
+                 lambda: lm.lm_solve_plain(*args, **kw), None, iters, b, by)
+    res.update(within_tol=shares, evaluations=evals, in_bounds=in_bounds,
+               scale_trips=trips, flops=flops, bytes=nbytes)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the mapping cycle
+# ---------------------------------------------------------------------------
+
+def _sync(device) -> float:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def gt_rel_err(est: dr.DepthEstimates, points: np.ndarray,
+               P: torch.Tensor) -> float:
+    """Median relative inverse-depth error of the valid estimates against
+    the front-most scene point projecting within 1.5 px of each one in its
+    own virtual view."""
+    v = est.valid
+    if not bool(v.any()):
+        return float("nan")
+    x, invd = est.x[v], est.inv_depth[v]
+    T_cw = se3_inverse(est.T_world_cam[v])
+    pts = torch.as_tensor(points, dtype=F32, device=x.device)
+    errs = []
+    for c in range(0, x.shape[0], 256):
+        R, t = T_cw[c:c + 256, :3, :3], T_cw[c:c + 256, :3, 3]
+        pc = torch.einsum("nij,mj->nmi", R, pts) + t[:, None, :]
+        h = pc @ P[:, :3].T + P[:, 3]
+        uv = h[..., :2] / h[..., 2:3]
+        near = ((uv - x[c:c + 256, None]).norm(dim=-1) < 1.5) \
+            & (pc[..., 2] > 0.1)
+        gt = torch.where(near, 1.0 / pc[..., 2],
+                         torch.zeros_like(pc[..., 2])).amax(1)
+        ok = near.any(1)
+        errs.append(((invd[c:c + 256] - gt).abs() / gt)[ok])
+    e = torch.cat(errs)
+    return float(e.median()) if e.numel() else float("nan")
+
+
+def _profiled(fn) -> dict:
+    """Wall time of fn unprofiled, then its device busy time, idle share
+    and heaviest kernels from a profiled repeat."""
+    t0 = _sync("cuda")
+    fn()
+    wall = (_sync("cuda") - t0) * 1e3
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    busy = _device_us(prof) / 1e3
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:4]
+    return dict(wall_ms=wall, device_busy_ms=busy,
+                idle_share=max(0.0, 1.0 - busy / wall),
+                device_launches=sum(e.count for e in dev),
+                top=[dict(kernel=e.key[:70],
+                          ms=e.self_device_time_total / 1e3, n=e.count)
+                     for e in top])
+
+
+def profile_cycle(cycle: MappingCycle, args) -> dict:
+    """One more estimate + rebuild on the last mapping tick's inputs (the
+    window is not pushed), and the regularization pass alone."""
+    grid = cycle.rebuild_frame(cycle.history, args[-1])[0]
+    return dict(
+        cycle=_profiled(lambda: (cycle.mapping_estimate(*args),
+                                 cycle.rebuild_frame(cycle.history,
+                                                     args[-1]))),
+        regularize=_profiled(lambda: regularize(grid, cycle.cfg.regularizer)))
+
+
+def run_cycle(name: str, rig: StereoRig, cfg: MappingCycleConfig, scene,
+              ticks, frames, device) -> list[dict]:
+    """Drive MappingCycle over the ticks; one record per mapping cycle,
+    and on the card a profile of the last one."""
+    cycle = MappingCycle(rig, cfg, device=device)
+    H, W = cycle.H, cycle.W
+    fl, fr = frames
+    st_l = tsf.init_state(H, W, device)
+    st_r = tsf.init_state(H, W, device)
+    pose_t = torch.tensor(scene.traj_times, dtype=F32, device=device)
+    pose_T = torch.tensor(scene.traj_poses, dtype=F32, device=device)
+    P_left = cycle.rig.left.params.P
+    out, render_ms = [], []
+    for k, t in enumerate(ticks):
+        t0 = _sync(device)
+        st_l, st_r, s_l, s_r = cycle.render_tick(
+            st_l, st_r,
+            *[tsf.EventBatch.from_arrays(
+                *[f[key][k] for key in ("x", "y", "t", "p", "valid")],
+                device=device) for f in (fl, fr)], float(t))
+        render_ms.append((_sync(device) - t0) * 1e3)
+        if k % MAP_EVERY != MAP_EVERY - 1:
+            continue
+        T_wf = torch.tensor(interpolate_gt_pose(scene, float(t)), dtype=F32,
+                            device=device)
+        ev = [torch.as_tensor(fl[key][k], device=device)
+              for key in ("x", "y", "t", "valid")]
+        t0 = _sync(device)
+        est, n_valid, bm_stats = cycle.mapping_estimate(
+            s_l, s_r, *ev, pose_t, pose_T, T_wf)
+        t1 = _sync(device)
+        cycle.push_history(est)
+        grid, pts, occ, n_fused, n_drop = cycle.rebuild_frame(cycle.history,
+                                                              T_wf)
+        t2 = _sync(device)
+        N = cycle.N
+        if est.inv_depth.shape != (N,) or pts.shape != (H, W, 3):
+            raise AssertionError(f"{name}: unexpected output shapes")
+        if not (torch.isfinite(est.inv_depth[est.valid]).all()
+                and torch.isfinite(pts[occ]).all()
+                and torch.isfinite(s_l).all()):
+            raise AssertionError(f"{name}: non-finite output")
+        out.append(dict(
+            slice=name, device=str(device), tick=k,
+            render_ms=float(np.mean(render_ms)), estimate_ms=(t1 - t0) * 1e3,
+            rebuild_ms=(t2 - t1) * 1e3, events=int(fl["valid"][k].sum()),
+            valid=int(n_valid), fused_pixels=int(occ.sum()),
+            fusions=int(n_fused), dropped=int(n_drop),
+            gt_median_rel_err=gt_rel_err(est, scene.points, P_left),
+            bm={kk: int(vv) for kk, vv in bm_stats.items()},
+            estimates=est))
+        render_ms = []
+        last = (s_l, s_r, *ev, pose_t, pose_T, T_wf)
+    if torch.device(device).type == "cuda":
+        out.append(dict(slice=name, profile=profile_cycle(cycle, last)))
+    return out
+
+
+def _public(rec: dict) -> dict:
+    return {k: v for k, v in rec.items() if k != "estimates"}
+
+
+def compare_to_cpu(card: list[dict], ref: list[dict]) -> dict:
+    """Card cycle against the CPU port's (the twins) on the same events."""
+    agree, worst, close = [], 0.0, []
+    for a, b in zip(card, ref):
+        va, vb = a["estimates"].valid.cpu(), b["estimates"].valid
+        agree.append(float((va == vb).float().mean()))
+        both = va & vb
+        da = a["estimates"].inv_depth.cpu()[both]
+        db = b["estimates"].inv_depth[both]
+        if both.any():
+            worst = max(worst, float((da - db).abs().max()))
+            close.append(float(torch.isclose(da, db, rtol=2e-4,
+                                             atol=2e-5).float().mean()))
+    res = dict(compare="rpg cycle, card vs CPU port", cycles=len(agree),
+               validity_agreement_min=min(agree),
+               inv_depth_max_abs_err=worst,
+               inv_depth_within_lm_tol_min=min(close) if close else None)
+    if not (len(agree) == len(card) and min(agree) >= 0.98
+            and (not close or min(close) >= 0.95)):
+        raise AssertionError(f"card and CPU cycles disagree: {res}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+
+KERNELS = {
+    "remap": dict(name="K3 remap", module=remap,
+                  source="esvo_tpu_torch/csrc/remap.cu",
+                  replaces="esvo_tpu/ops/pallas_remap.py:122"),
+    "patches": dict(name="K1 slice_patches", module=patches,
+                    source="esvo_tpu_torch/csrc/patches.cu",
+                    replaces="esvo_tpu/ops/pallas_patches.py:23"),
+    "lm": dict(name="K2 lm_solve", module=lm,
+               source="esvo_tpu_torch/csrc/lm.cu",
+               replaces="esvo_tpu/ops/pallas_lm.py:57"),
+}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    # every float32 product in full float32 (PyTorch's defaults, stated)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"device: {kind} x{torch.cuda.device_count()}; nvidia-smi: {card}")
+
+    t0 = time.perf_counter()
+    _build.build([info["source"].rsplit("/", 1)[1]
+                  for info in KERNELS.values()])
+    log(dict(build_s=time.perf_counter() - t0))
+    for src, text in _build.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"ptxas {src}: {line.strip()}")
+
+    cfgs = {name: MappingCycleConfig.from_dict(d)
+            for name, d in (("rpg", RPG), ("dsec", DSEC))}
+    rigs = {name: make_rig(name, "cuda") for name in RIGS}
+    shapes = {"rpg": dict(n=1000, disp=8), "dsec": dict(n=10000, disp=40)}
+    checks = {}
+    for shape, s in shapes.items():
+        rig = rigs[shape]
+        checks[("remap", shape)] = check_remap(rig)
+        checks[("patches", shape)] = check_patches(rig, s["n"])
+        checks[("lm", shape)] = check_lm(rig, cfgs[shape], s["n"], s["disp"])
+        for k in KERNELS:
+            log(dict(check=KERNELS[k]["name"], shape=shape, card=card,
+                     **checks[(k, shape)]))
+
+    streams = {name: make_stream(name, rigs[name]) for name in RIGS}
+    launches = {}
+    records = {}
+    for name in ("rpg", "dsec"):
+        for info in KERNELS.values():
+            info["module"].KERNEL.launches = 0
+        records[name] = run_cycle(name, rigs[name], cfgs[name],
+                                  *streams[name], "cuda")
+        launches[name] = {k: info["module"].KERNEL.launches
+                          for k, info in KERNELS.items()}
+        for rec in records[name]:
+            log(dict(_public(rec), card=card))
+        records[name] = [r for r in records[name] if "profile" not in r]
+        log(dict(slice=name, launches=launches[name]))
+        if min(launches[name].values()) == 0:
+            raise AssertionError(f"{name}: a kernel never launched: "
+                                 f"{launches[name]}")
+    for name, recs in records.items():
+        errs = [r["gt_median_rel_err"] for r in recs]
+        if not (all(r["valid"] > 0 for r in recs)
+                and np.nanmax(errs) < 0.3):
+            raise AssertionError(f"{name}: no valid estimates or GT error "
+                                 f"{errs}")
+
+    cpu_rig = convert.rig_from_numpy(convert.rig_to_numpy(rigs["rpg"]),
+                                     device="cpu")
+    ref = run_cycle("rpg", cpu_rig, cfgs["rpg"], *streams["rpg"], "cpu")
+    log(compare_to_cpu(records["rpg"], ref))
+
+    table = []
+    for k, info in KERNELS.items():
+        rpg, dsec = checks[(k, "rpg")], checks[(k, "dsec")]
+        entry = dict(name=info["name"], route="cuda", source=info["source"],
+                     replaces=info["replaces"],
+                     launches=launches["rpg"][k] + launches["dsec"][k])
+        entry.update(ms=rpg["kernel_ms"], **{key: rpg[key] for key in (
+            "max_abs_err", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "call_ms", "timing")})
+        entry.update({f"dsec_{key}": dsec[key] for key in (
+            "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+            "library_ms")})
+        table.append(entry)
+    log(f"card: {card}")
+    log(dict(kernels=table))
+    log(dict(ok=True, device=dict(platform="gpu", kind=kind,
+                                  count=torch.cuda.device_count())))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,37 @@
+"""The port stands alone: importing esvo_tpu_torch loads neither JAX nor
+the JAX package, and no file of the port (nor chip_smoke.py) imports
+them."""
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "esvo_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+# "esvo_tpu." never matches the port's own prefix "esvo_tpu_torch"
+FORBIDDEN = re.compile(r"\b(import|from)\s+(jax|flax)\b|\besvo_tpu\."
+                       r"|\b(import|from)\s+esvo_tpu\b")
+
+
+def test_import_loads_no_jax():
+    code = ("import sys, esvo_tpu_torch\n"
+            "import esvo_tpu_torch.runtime.system, esvo_tpu_torch.convert\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'flax')) or m == 'esvo_tpu' "
+            "or m.startswith('esvo_tpu.'))\n"
+            "print(bad)\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_imports_in_source(path):
+    assert path.exists(), path
+    hits = [m.group(0) for m in FORBIDDEN.finditer(path.read_text())]
+    assert not hits, f"{path.name}: {hits}"
