@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -319,9 +320,16 @@ def lm_world(rig: StereoRig, cfg: MappingCycleConfig, n: int, disp: int,
 
 def check_lm(rig: StereoRig, cfg: MappingCycleConfig, n: int, disp: int,
              iters: int = 20) -> dict:
+    """K2 against its twin, launched twice (the two launches must agree
+    bit for bit), with its launch plan and the work the data asked for."""
     args, kw = lm_world(rig, cfg, n, disp, seed=5)
     work = torch.zeros(3, dtype=torch.int64, device="cuda")
     got = lm.lm_solve(*args, **kw, work=work)
+    work2 = torch.zeros(3, dtype=torch.int64, device="cuda")
+    again = lm.lm_solve(*args, **kw, work=work2)
+    if not (all(torch.equal(x, y) for x, y in zip(got, again))
+            and torch.equal(work, work2)):
+        raise AssertionError("K2: two launches on the same inputs differ")
     want = lm.lm_solve_plain(*args, **kw)
     d_k, c_k, j_k = (a.cpu().numpy() for a in got)
     d_t, c_t, j_t = (a.cpu().numpy() for a in want)
@@ -355,8 +363,54 @@ def check_lm(rig: StereoRig, cfg: MappingCycleConfig, n: int, disp: int,
                  lambda: lm.lm_solve(*args, **kw),
                  lambda: lm.lm_solve_plain(*args, **kw), None, iters, b, by)
     res.update(within_tol=shares, evaluations=evals, in_bounds=in_bounds,
-               scale_trips=trips, flops=flops, bytes=nbytes)
+               scale_trips=trips, flops=flops, bytes=nbytes,
+               plan=lm_plan(kw, n))
     return res
+
+
+def ptxas_report(log: str) -> dict[str, dict]:
+    """Registers, stack and spill bytes per kernel from nvcc -Xptxas -v."""
+    fns, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1)
+            m = re.search(r"lm_kernelILi(\d+)ELb([01])E", cur)
+            if m:   # demangle K2's instantiations as lm.kernel_info names
+                cur = (f"lm_kernel<{m[1]}, "
+                       f"{'true' if m[2] == '1' else 'false'}>")
+            fns[cur] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            fns[cur].update(stack_bytes=int(m[1]), spill_stores=int(m[2]),
+                            spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            fns[cur]["registers"] = int(m[1])
+    return fns
+
+
+def lm_plan(kw: dict, n: int) -> dict:
+    """K2's instantiation and launch for this shape: registers and local
+    bytes (CUDA runtime), spills (ptxas), blocks an SM holds, grid,
+    shared memory a block."""
+    info = lm.kernel_info(lm.patch_kpl(kw["wy"], kw["wx"]),
+                          kw["ls_norm"] == "Tdist", kw["Wy"], kw["Wx"])
+    plan = lm.lm_launch_plan(kw["wy"], kw["wx"], kw["Wy"], kw["Wx"], n,
+                             info["sms"], info["blocks_per_sm"],
+                             info["warps"])
+    rep = ptxas_report(_build.BUILD_LOG.get("lm.cu", "")).get(info["name"],
+                                                               {})
+    return dict(instantiation=info["name"], registers=info["registers"],
+                local_bytes=info["local_bytes"],
+                spill_stores=rep.get("spill_stores"),
+                spill_loads=rep.get("spill_loads"),
+                blocks_per_sm=info["blocks_per_sm"],
+                warps_per_sm=info["blocks_per_sm"] * info["warps"],
+                sms=info["sms"], grid=plan["grid"],
+                smem_bytes_per_block=info["smem_bytes"], buffering="single")
 
 
 # ---------------------------------------------------------------------------
@@ -546,9 +600,8 @@ def main() -> int:
                   for info in KERNELS.values()])
     log(dict(build_s=time.perf_counter() - t0))
     for src, text in _build.BUILD_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"ptxas {src}: {line.strip()}")
+        for fn, rep in ptxas_report(text).items():
+            log(f"ptxas {src} {fn}: {rep}")
 
     cfgs = {name: MappingCycleConfig.from_dict(d)
             for name, d in (("rpg", RPG), ("dsec", DSEC))}
@@ -606,6 +659,8 @@ def main() -> int:
             "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
             "library_ms")})
         table.append(entry)
+    for shape in shapes:
+        log(dict(k2_launch=shape, card=card, **checks[("lm", shape)]["plan"]))
     log(f"card: {card}")
     log(dict(kernels=table))
     log(dict(ok=True, device=dict(platform="gpu", kind=kind,

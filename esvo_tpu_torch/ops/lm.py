@@ -7,23 +7,95 @@ the analytic depth Jacobian of u(z) = (Az + B)/(Cz + D), bilinear
 sampling by gather from each event's window, the Student-t scale fixed
 point with its freeze mask, the OOB-255 sentinel, and the same
 lambda/strike schedule.
+
+The kernel is persistent: ``lm_launch_plan`` sizes its grid to what the
+card holds at once (``kernel_info`` asks the CUDA occupancy calculator),
+and its warps take events from a queue counter the wrapper zeroes.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
+from esvo_tpu_torch.ops import _build
 from esvo_tpu_torch.ops._build import CudaKernel, require
 
 KERNEL = CudaKernel(
     "lm.cu", "esvo_lm_solve",
-    [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_float] * 4
-    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + [ctypes.c_float] * 4
+    + [ctypes.c_int] * 4)
 
 # the kernel keeps at most 8 patch pixels per lane of a warp
 MAX_PATCH_AREA = 256
+
+_INFO: dict = {}   # kernel_info per (instantiation, window, device)
+
+
+def patch_kpl(wy: int, wx: int) -> int:
+    """Patch pixels each lane of the event's warp owns: ceil(wy*wx/32)."""
+    area = wy * wx
+    if not 0 < area <= MAX_PATCH_AREA:
+        raise ValueError(f"patch area {area} not in 1..{MAX_PATCH_AREA}")
+    return -(-area // 32)
+
+
+def lm_launch_plan(wy: int, wx: int, Wy: int, Wx: int, N: int, sms: int,
+                   blocks_per_sm: int, warps: int) -> dict:
+    """The kernel's instantiation (kpl) and grid: what the card holds at
+    once (sms x blocks_per_sm blocks of `warps` warps, as ``kernel_info``
+    reports them), never more blocks than the N events fill. Raises
+    where the kernel cannot take the shape."""
+    kpl = patch_kpl(wy, wx)
+    if Wy < wy + 1 or Wx < wx + 1:
+        raise ValueError(f"window ({Wy}, {Wx}) does not hold a ({wy}+1, "
+                         f"{wx}+1) bilinear patch")
+    if Wy * Wx * 4 % 16:
+        raise ValueError(f"a ({Wy}, {Wx}) f32 window is {Wy * Wx * 4} "
+                         "bytes, not a multiple of the bulk copy's 16")
+    return dict(kpl=kpl, grid=min(-(-N // warps), sms * blocks_per_sm))
+
+
+def kernel_info(kpl: int, tdist: bool, Wy: int, Wx: int,
+                device=None) -> dict:
+    """One instantiation of the kernel for (Wy, Wx) windows, prepared on
+    the device (once) and as the CUDA runtime reports it: blocks an SM
+    holds, registers and local (spill) bytes a thread, warps and dynamic
+    shared bytes a block (csrc/lm.cu owns the layout), the card's SMs."""
+    device = torch.device("cuda" if device is None else device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    key = (kpl, bool(tdist), Wy, Wx, index)
+    if key not in _INFO:
+        fn = _build._load(KERNEL.source).esvo_lm_kernel_info
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 6)()
+        with torch.cuda.device(index):
+            err = fn(kpl, int(tdist), Wy, Wx, ctypes.addressof(out))
+        if err != 0:
+            raise RuntimeError(f"esvo_lm_kernel_info failed: CUDA error {err}")
+        name = f"lm_kernel<{kpl}, {'true' if tdist else 'false'}>"
+        if out[0] < 1:
+            raise RuntimeError(f"{name} does not fit on an SM with {out[3]} "
+                               "bytes of shared memory")
+        _INFO[key] = dict(
+            name=name, blocks_per_sm=out[0], registers=out[1],
+            local_bytes=out[2], smem_bytes=out[3], warps=out[4],
+            static_smem_bytes=out[5],
+            sms=torch.cuda.get_device_properties(index).multi_processor_count)
+    return _INFO[key]
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(wy: int, wx: int, Wy: int, Wx: int, N: int, tdist: bool,
+          index: int) -> dict:
+    """lm_launch_plan on the device's kernel_info, per shape and device."""
+    info = kernel_info(patch_kpl(wy, wx), tdist, Wy, Wx, index)
+    return lm_launch_plan(wy, wx, Wy, Wx, N, info["sms"],
+                          info["blocks_per_sm"], info["warps"])
 
 
 def _warp_coeffs(P_left, P_right, Ainv, u_ev, v_ev, rows):
@@ -201,26 +273,36 @@ def lm_solve(P_left, P_right, Ainv, u_ev, v_ev, d_init, oy1, ox1, oy2, ox2,
                               oy1, ox1, oy2, ox2, rows_lv, win1, win2, **kw)
     if ls_norm not in ("Tdist", "l2"):
         raise NotImplementedError(f"LM kernel: ls_norm {ls_norm!r}")
-    if wy * wx > MAX_PATCH_AREA:
-        raise ValueError(f"patch area {wy * wx} > {MAX_PATCH_AREA}")
     N = u_ev.shape[0]
     f32 = torch.float32
-    consts = torch.cat([P_left.reshape(-1), P_right.reshape(-1),
-                        Ainv.reshape(-1)]).to(f32).contiguous()
-    require(consts, "P_left/P_right/Ainv", f32, (33,))
+    P_left, P_right, Ainv = (m.to(f32).contiguous()
+                             for m in (P_left, P_right, Ainv))
+    require(P_left, "P_left", f32, (3, 4))
+    require(P_right, "P_right", f32, (3, 4))
+    require(Ainv, "Ainv", f32, (3, 3))
     for name, t in (("u_ev", u_ev), ("v_ev", v_ev), ("d_init", d_init)):
         require(t, name, f32, (N,))
     for name, t in (("oy1", oy1), ("ox1", ox1), ("oy2", oy2), ("ox2", ox2)):
         require(t, name, torch.int32, (N,))
     require(rows_lv, "rows_lv", f32, (12, N))
-    require(win1, "win1", f32, (N, Wy, Wx))
-    require(win2, "win2", f32, (N, Wy, Wx))
+    for name, t in (("win1", win1), ("win2", win2)):
+        require(t, name, f32, (N, Wy, Wx))
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the bulk "
+                             "copy")
     if work is not None:
         require(work, "work", torch.int64, (3,))
-    out = torch.empty((3, N), dtype=f32, device=win1.device)
+    tdist = ls_norm == "Tdist"
+    device = win1.device
+    plan = _plan(wy, wx, Wy, Wx, N, tdist, device.index)
+    out = torch.empty((3, N), dtype=f32, device=device)
+    if N == 0:
+        return out[0], out[1], out[2]
+    queue = torch.zeros(1, dtype=torch.int32, device=device)
     w_oob = (nu + 1.0) / (nu + (255.0 / math.sqrt(scale2_init)) ** 2)
-    KERNEL.launch(consts, u_ev, v_ev, d_init, oy1, ox1, oy2, ox2, rows_lv,
-                  win1, win2, out[0], out[1], out[2], N, wy, wx, Wy, Wx, H, W,
-                  int(ls_norm == "Tdist"), nu, nu + 1.0, scale2_init, w_oob,
-                  td_iters, max_iteration, work)
+    KERNEL.launch(P_left, P_right, Ainv, u_ev, v_ev, d_init, oy1, ox1, oy2,
+                  ox2, rows_lv, win1, win2, out[0], out[1], out[2], queue,
+                  work, N, wy, wx, Wy, Wx, H, W, int(tdist), nu, nu + 1.0,
+                  scale2_init, w_oob, td_iters, max_iteration, plan["kpl"],
+                  plan["grid"])
     return out[0], out[1], out[2]

@@ -172,3 +172,51 @@ def test_unported_branches_raise():
                 tdr.DepthProblemConfig(window_margin=-1)):
         with pytest.raises(NotImplementedError):
             tdr.solve(*args, cfg)
+
+
+# --- kernel K2's launch plan (host arithmetic; no card needed) -------------
+
+def test_launch_plan_presets_patch():
+    """The presets' 15x7 patch in 24x32 windows: 4 pixels a lane."""
+    plan = lm_op.lm_launch_plan(7, 15, 24, 32, 1000, 132, 3, 8)
+    assert plan["kpl"] == 4
+    assert plan["grid"] == 125          # ceil(1000 / 8) < 132 * 3
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 9, 1000, 10000, 123457])
+@pytest.mark.parametrize("sms, blocks", [(132, 3), (132, 2), (1, 1)])
+def test_launch_plan_grid(n, sms, blocks):
+    """The grid is what the card holds at once, and never more blocks
+    than the events fill."""
+    grid = lm_op.lm_launch_plan(7, 15, 24, 32, n, sms, blocks, 8)["grid"]
+    assert grid <= -(-n // 8)
+    assert grid == min(-(-n // 8), sms * blocks)
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 1000, 10000, 123457])
+def test_launch_plan_grid_follows_warps(n):
+    """The grid divides the events by the warps a block that kernel_info
+    reports, not by a constant of its own."""
+    grid = lm_op.lm_launch_plan(7, 15, 24, 32, n, 132, 3, 4)["grid"]
+    assert grid == min(-(-n // 4), 132 * 3)
+
+
+@pytest.mark.parametrize("wy, wx, kpl", [(1, 1, 1), (5, 5, 1), (4, 8, 1),
+                                         (3, 11, 2), (7, 15, 4),
+                                         (15, 17, 8), (16, 16, 8)])
+def test_patch_kpl(wy, wx, kpl):
+    assert lm_op.patch_kpl(wy, wx) == kpl
+
+
+@pytest.mark.parametrize("wy, wx", [(17, 17), (16, 17), (0, 5)])
+def test_launch_plan_rejects_patch_area(wy, wx):
+    with pytest.raises(ValueError):
+        lm_op.lm_launch_plan(wy, wx, wy + 17, wx + 17, 100, 132, 3, 8)
+
+
+@pytest.mark.parametrize("Wy, Wx", [(23, 31), (22, 31), (7, 32), (24, 15)])
+def test_launch_plan_rejects_windows(Wy, Wx):
+    """Windows whose byte size is no multiple of 16 (the bulk copy's unit)
+    or which cannot hold the bilinear patch raise."""
+    with pytest.raises(ValueError):
+        lm_op.lm_launch_plan(7, 15, Wy, Wx, 100, 132, 3, 8)
