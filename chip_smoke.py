@@ -8,7 +8,8 @@
 3. each kernel against its plain PyTorch twin on the card, on the same
    inputs, at the rpg (240x180, N=1000) and DSEC (640x480, N=10000)
    shapes, with its time, the twin's, a library call's where one exists,
-   and its roofline bound;
+   and its roofline bound; K1 and K3 also as one pair launch on both
+   cameras' inputs; the card's launch floor (a one-element fill_);
 4. the WORKING mapping cycle (MappingCycle: render -> estimate ->
    rebuild) on synthetic scenes at rpg and DSEC scale, with per-stage
    times, the kernels' launch counts and the error against ground truth;
@@ -250,28 +251,50 @@ def _times(err, kernel, plain, library, iters, bound_ms, bound_by) -> dict:
 
 
 def check_remap(rig: StereoRig, iters: int = 200) -> dict:
+    """K3 on the left camera as one launch, and on both cameras (two
+    images through the left and right maps) as one pair launch; each
+    bit-exact with its twin, timed beside its bound and grid_sample."""
     cam = rig.left
     H, W = cam.height, cam.width
     gen = torch.Generator(device="cuda").manual_seed(3)
-    img = torch.randint(0, 256, (H, W), generator=gen, device="cuda").to(F32)
+    img, img_r = (torch.randint(0, 256, (H, W), generator=gen,
+                                device="cuda").to(F32) for _ in range(2))
     m = cam.inv_map.contiguous()
+    m_r = rig.right.inv_map.contiguous()
     got = remap.remap(img, m)
-    want = remap.remap_plain(img, m, 0.0)
-    err = float((got - want).abs().max())
-    if not err <= 1e-5:
-        raise AssertionError(f"K3 remap differs from its twin by {err}")
-    grid = torch.stack([2 * m[..., 0] / (W - 1) - 1,
-                        2 * m[..., 1] / (H - 1) - 1], -1)[None]
-    lib = lambda: F.grid_sample(img[None, None], grid, mode="bilinear",
-                                padding_mode="zeros", align_corners=True)
+    pair = remap.remap_pair(img, m, img_r, m_r)
+    want = (remap.remap_plain(img, m, 0.0), remap.remap_plain(img_r, m_r, 0.0))
+    err = float((got - want[0]).abs().max())
+    err_pair = max(float((a - b).abs().max()) for a, b in zip(pair, want))
+    if not (torch.equal(got, want[0])
+            and all(torch.equal(a, b) for a, b in zip(pair, want))):
+        raise AssertionError(f"K3 remap is not bit-exact: single {err}, "
+                             f"pair {err_pair}")
+    grids = [torch.stack([2 * mm[..., 0] / (W - 1) - 1,
+                          2 * mm[..., 1] / (H - 1) - 1], -1)[None]
+             for mm in (m, m_r)]
+    lib = lambda im, g: F.grid_sample(im[None, None], g, mode="bilinear",
+                                      padding_mode="zeros",
+                                      align_corners=True)
     # per pixel: map 8 B in, image 4 B in, 4 B out; 15 flops (2 floors'
     # fractions, 2 complements, 4 weights, 4 products, 3 sums)
     b, by = bound(H * W * (4 + 8 + 4), H * W * 15)
-    return _times(err, lambda: remap.remap(img, m),
-                  lambda: remap.remap_plain(img, m, 0.0), lib, iters, b, by)
+    res = _times(err, lambda: remap.remap(img, m),
+                 lambda: remap.remap_plain(img, m, 0.0),
+                 lambda: lib(img, grids[0]), iters, b, by)
+    b2, by2 = bound(2 * H * W * (4 + 8 + 4), 2 * H * W * 15)
+    res["pair"] = _times(
+        err_pair, lambda: remap.remap_pair(img, m, img_r, m_r),
+        lambda: (remap.remap_plain(img, m, 0.0),
+                 remap.remap_plain(img_r, m_r, 0.0)),
+        lambda: (lib(img, grids[0]), lib(img_r, grids[1])), iters, b2, by2)
+    return res
 
 
 def check_patches(rig: StereoRig, n: int, iters: int = 200) -> dict:
+    """K1 on one surface as one launch, and on two surfaces with two start
+    sets as one pair launch; each bit-exact with its twin, timed beside
+    its bound and the advanced-index gather."""
     H, W = rig.left.height, rig.left.width
     h, w = 24, 32
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -280,19 +303,69 @@ def check_patches(rig: StereoRig, n: int, iters: int = 200) -> dict:
                        dtype=torch.int32)          # some starts clamp
     ux = torch.randint(-4, W - w + 4, (n,), generator=gen, device="cuda",
                        dtype=torch.int32)
+    img_r = torch.rand((H, W), generator=gen, device="cuda") * 255
+    uy_r = torch.randint(-4, H - h + 4, (n,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    ux_r = torch.randint(-4, W - w + 4, (n,), generator=gen, device="cuda",
+                         dtype=torch.int32)
     got = patches.slice_patches(img, uy, ux, h, w)
     want = patches.slice_patches_plain(img, uy, ux, h, w)
-    if not torch.equal(got, want):
+    pair = patches.slice_patches_pair(img, uy, ux, img_r, uy_r, ux_r, h, w)
+    want_r = patches.slice_patches_plain(img_r, uy_r, ux_r, h, w)
+    if not (torch.equal(got, want) and torch.equal(pair[0], want)
+            and torch.equal(pair[1], want_r)):
         raise AssertionError("K1 slice_patches is not bit-exact")
-    rr = (torch.clamp(uy.long(), 0, H - h)[:, None, None]
-          + torch.arange(h, device="cuda")[None, :, None])
-    cc = (torch.clamp(ux.long(), 0, W - w)[:, None, None]
-          + torch.arange(w, device="cuda")[None, None, :])
+
+    def index(y, x):
+        rr = (torch.clamp(y.long(), 0, H - h)[:, None, None]
+              + torch.arange(h, device="cuda")[None, :, None])
+        cc = (torch.clamp(x.long(), 0, W - w)[:, None, None]
+              + torch.arange(w, device="cuda")[None, None, :])
+        return rr, cc
+
+    (rr, cc), (rr_r, cc_r) = index(uy, ux), index(uy_r, ux_r)
     b, by = bound(H * W * 4 + n * 8 + n * h * w * 4, 0)
-    return _times(float((got - want).abs().max()),
-                  lambda: patches.slice_patches(img, uy, ux, h, w),
-                  lambda: patches.slice_patches_plain(img, uy, ux, h, w),
-                  lambda: img[rr, cc], iters, b, by)
+    res = _times(float((got - want).abs().max()),
+                 lambda: patches.slice_patches(img, uy, ux, h, w),
+                 lambda: patches.slice_patches_plain(img, uy, ux, h, w),
+                 lambda: img[rr, cc], iters, b, by)
+    b2, by2 = bound(2 * (H * W * 4 + n * 8 + n * h * w * 4), 0)
+    res["pair"] = _times(
+        max(float((a - b).abs().max()) for a, b in zip(pair, (want, want_r))),
+        lambda: patches.slice_patches_pair(img, uy, ux, img_r, uy_r, ux_r,
+                                           h, w),
+        lambda: (patches.slice_patches_plain(img, uy, ux, h, w),
+                 patches.slice_patches_plain(img_r, uy_r, ux_r, h, w)),
+        lambda: (img[rr, cc], img_r[rr_r, cc_r]), iters, b2, by2)
+    res["plan"] = k1_plan(h, w, n)
+    return res
+
+
+def k1_plan(h: int, w: int, n: int) -> dict:
+    """K1's instantiation and launch for n windows (single) and 2n
+    (pair): registers, local bytes and spills, blocks an SM, grids."""
+    info = patches.kernel_info(h, w)
+    rep = ptxas_report(_build.BUILD_LOG.get("patches.cu", "")).get(
+        info["name"], {})
+    grid = lambda k: patches.patches_launch_plan(
+        k, info["sms"], info["blocks_per_sm"], info["warps"])
+    return dict(instantiation=info["name"], band_rows=info["band_rows"],
+                vec=info["vec"],
+                registers=info["registers"], local_bytes=info["local_bytes"],
+                spill_stores=rep.get("spill_stores"),
+                spill_loads=rep.get("spill_loads"),
+                blocks_per_sm=info["blocks_per_sm"],
+                warps_per_sm=info["blocks_per_sm"] * info["warps"],
+                sms=info["sms"], grid=grid(n), pair_grid=grid(2 * n))
+
+
+def launch_floor(iters: int = 200) -> dict:
+    """The card's launch floor: the device time of a one-element fill_."""
+    one = torch.empty(1, device="cuda")
+    t = timed(lambda: one.fill_(1.0), iters)
+    return dict(launch_floor_ms=t["ms"], call_ms=t["call_ms"],
+                of="torch.Tensor.fill_ on one float32 element",
+                timing=t["timing"])
 
 
 def lm_world(rig: StereoRig, cfg: MappingCycleConfig, n: int, disp: int,
@@ -379,6 +452,9 @@ def ptxas_report(log: str) -> dict[str, dict]:
             if m:   # demangle K2's instantiations as lm.kernel_info names
                 cur = (f"lm_kernel<{m[1]}, "
                        f"{'true' if m[2] == '1' else 'false'}>")
+            m = re.search(r"slice_patches_kernelILi(\d+)ELi(\d+)E", cur)
+            if m:   # K1's, as patches.kernel_info names them
+                cur = f"slice_patches_kernel<{m[1]}, {m[2]}>"
             fns[cur] = {}
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -601,7 +677,8 @@ def main() -> int:
     log(dict(build_s=time.perf_counter() - t0))
     for src, text in _build.BUILD_LOG.items():
         for fn, rep in ptxas_report(text).items():
-            log(f"ptxas {src} {fn}: {rep}")
+            if not fn.startswith("slice_patches_kernel<"):   # see k1_launch
+                log(f"ptxas {src} {fn}: {rep}")
 
     cfgs = {name: MappingCycleConfig.from_dict(d)
             for name, d in (("rpg", RPG), ("dsec", DSEC))}
@@ -616,6 +693,9 @@ def main() -> int:
         for k in KERNELS:
             log(dict(check=KERNELS[k]["name"], shape=shape, card=card,
                      **checks[(k, shape)]))
+            if (k, shape) == ("remap", "rpg"):
+                floor = launch_floor()
+                log(dict(floor, card=card))
 
     streams = {name: make_stream(name, rigs[name]) for name in RIGS}
     launches = {}
@@ -658,8 +738,16 @@ def main() -> int:
         entry.update({f"dsec_{key}": dsec[key] for key in (
             "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
             "library_ms")})
+        for prefix, rec in (("", rpg), ("dsec_", dsec)):
+            if "pair" in rec:
+                entry.update({f"{prefix}pair_{key}": rec["pair"][key]
+                              for key in ("kernel_ms", "bound_ms",
+                                          "library_ms")})
         table.append(entry)
+    log(dict(floor, card=card))
     for shape in shapes:
+        log(dict(k1_launch=shape, card=card,
+                 **checks[("patches", shape)]["plan"]))
         log(dict(k2_launch=shape, card=card, **checks[("lm", shape)]["plan"]))
     log(f"card: {card}")
     log(dict(kernels=table))

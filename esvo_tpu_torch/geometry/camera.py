@@ -169,6 +169,13 @@ def inverse_rectification_map(params: PinholeParams) -> torch.Tensor:
                           _pixel_grid(params.width, params.height, params.K))
 
 
+def _takes_k3(img: torch.Tensor, map_xy: torch.Tensor, fill: float) -> bool:
+    """Kernel K3 takes a CUDA f32 image with fill 0 and a full map."""
+    H, W = img.shape
+    return (img.is_cuda and fill == 0.0 and img.dtype == torch.float32
+            and tuple(map_xy.shape) == (H, W, 2))
+
+
 def remap_bilinear(img: torch.Tensor, map_xy: torch.Tensor,
                    fill: float = 0.0) -> torch.Tensor:
     """Bilinear resampling img (H, W) at map_xy (..., 2); out-of-bounds
@@ -176,11 +183,23 @@ def remap_bilinear(img: torch.Tensor, map_xy: torch.Tensor,
 
     A CUDA f32 image with fill 0 and a full (H, W, 2) map goes to kernel
     K3 (ops/remap.py); everything else takes the per-tap gather."""
-    H, W = img.shape
-    if (img.is_cuda and fill == 0.0 and img.dtype == torch.float32
-            and tuple(map_xy.shape) == (H, W, 2)):
+    if _takes_k3(img, map_xy, fill):
         return remap_op.remap(img, map_xy)
     return remap_op.remap_plain(img, map_xy, fill)
+
+
+def remap_bilinear_pair(img_a: torch.Tensor, map_a: torch.Tensor,
+                        img_b: torch.Tensor, map_b: torch.Tensor,
+                        fill: float = 0.0):
+    """remap_bilinear on two cameras' images: one launch of K3 where it
+    would take each image and both share one shape and device, else two
+    remap_bilinear calls. Returns (a, b)."""
+    if (_takes_k3(img_a, map_a, fill) and _takes_k3(img_b, map_b, fill)
+            and img_a.shape == img_b.shape
+            and img_a.device == img_b.device):
+        return remap_op.remap_pair(img_a, map_a, img_b, map_b)
+    return (remap_bilinear(img_a, map_a, fill),
+            remap_bilinear(img_b, map_b, fill))
 
 
 def valid_pixel_mask(params: PinholeParams,

@@ -16,7 +16,7 @@ import torch
 
 from esvo_tpu_torch.geometry.camera import StereoRig, cam_to_world, inv3
 from esvo_tpu_torch.geometry.se3 import rows_apply, rows_from_matrices
-from esvo_tpu_torch.ops.interp import slice_patches
+from esvo_tpu_torch.ops.interp import slice_patches_pair
 from esvo_tpu_torch.ops.lm import lm_solve
 
 
@@ -101,7 +101,8 @@ def window_problem(matches_x, T_left_virtual, d_init, ts_left, ts_right,
                    rig: StereoRig, cfg: DepthProblemConfig):
     """The arguments of ops.lm.lm_solve for N events: one (patch +
     2*margin) window per surface per event, cut at the initial warp
-    positions (kernel K1 on the card). Returns (args, kwargs)."""
+    positions (kernel K1 on the card, both surfaces in one launch).
+    Returns (args, kwargs)."""
     H, W = ts_left.shape
     P_left = rig.left.params.P
     P_right = rig.right.params.P
@@ -130,8 +131,8 @@ def window_problem(matches_x, T_left_virtual, d_init, ts_left, ts_right,
 
     oy1, ox1 = origin(u1, v1)
     oy2, ox2 = origin(u2, v2)
-    win1 = slice_patches(ts_left, oy1, ox1, Wy, Wx)
-    win2 = slice_patches(ts_right, oy2, ox2, Wy, Wx)
+    win1, win2 = slice_patches_pair(ts_left, oy1, ox1, ts_right, oy2, ox2,
+                                    Wy, Wx)
     args = (P_left, P_right, Ainv, u_ev, v_ev, d_init, oy1, ox1, oy2, ox2,
             rows_lv, win1, win2)
     kwargs = dict(wy=wy, wx=wx, Wy=Wy, Wx=Wx, H=H, W=W, ls_norm=cfg.ls_norm,

@@ -21,6 +21,16 @@ def gather2d(img: torch.Tensor, yi: torch.Tensor,
     return img.reshape(-1)[idx]
 
 
+def _to_kernel(img: torch.Tensor, h: int, w: int) -> bool:
+    """Whether slice_patches sends (h, w) windows of img to kernel K1."""
+    return (h * w > 64 and img.is_cuda and h % 8 == 0
+            and img.dtype == torch.float32)
+
+
+def _starts(uy: torch.Tensor, ux: torch.Tensor):
+    return uy.to(torch.int32).contiguous(), ux.to(torch.int32).contiguous()
+
+
 def slice_patches(img: torch.Tensor, ul_y: torch.Tensor, ul_x: torch.Tensor,
                   h: int, w: int) -> torch.Tensor:
     """Extract (h, w) blocks of img at integer upper-left corners.
@@ -36,11 +46,9 @@ def slice_patches(img: torch.Tensor, ul_y: torch.Tensor, ul_x: torch.Tensor,
     uy = ul_y.reshape(-1)
     ux = ul_x.reshape(-1)
     H, W = img.shape
-    if (h * w > 64 and img.is_cuda and h % 8 == 0
-            and img.dtype == torch.float32):
-        out = patches_op.slice_patches(img.contiguous(),
-                                       uy.to(torch.int32).contiguous(),
-                                       ux.to(torch.int32).contiguous(), h, w)
+    if _to_kernel(img, h, w):
+        out = patches_op.slice_patches(img.contiguous(), *_starts(uy, ux),
+                                       h, w)
         return out.reshape(shape + (h, w))
     dev = img.device
     yy = torch.clamp(uy.long()[:, None, None]
@@ -49,6 +57,26 @@ def slice_patches(img: torch.Tensor, ul_y: torch.Tensor, ul_x: torch.Tensor,
                      + torch.arange(w, device=dev)[None, None, :], 0, W - 1)
     out = img.reshape(-1)[yy * W + xx]
     return out.reshape(shape + (h, w))
+
+
+def slice_patches_pair(img_a: torch.Tensor, ul_y_a: torch.Tensor,
+                       ul_x_a: torch.Tensor, img_b: torch.Tensor,
+                       ul_y_b: torch.Tensor, ul_x_b: torch.Tensor, h: int,
+                       w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """slice_patches on two images. Where slice_patches would send both
+    to kernel K1 and the images share a shape, one K1 launch takes both;
+    otherwise each goes its own way, as two slice_patches calls."""
+    if (_to_kernel(img_a, h, w) and _to_kernel(img_b, h, w)
+            and img_a.shape == img_b.shape):
+        a, b = patches_op.slice_patches_pair(
+            img_a.contiguous(), *_starts(ul_y_a.reshape(-1),
+                                         ul_x_a.reshape(-1)),
+            img_b.contiguous(), *_starts(ul_y_b.reshape(-1),
+                                         ul_x_b.reshape(-1)), h, w)
+        return (a.reshape(tuple(ul_y_a.shape) + (h, w)),
+                b.reshape(tuple(ul_y_b.shape) + (h, w)))
+    return (slice_patches(img_a, ul_y_a, ul_x_a, h, w),
+            slice_patches(img_b, ul_y_b, ul_x_b, h, w))
 
 
 def patch_interpolate(img: torch.Tensor, loc: torch.Tensor, wy: int, wx: int):

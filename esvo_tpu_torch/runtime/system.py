@@ -5,7 +5,7 @@ port has so far).
 state. One cycle is the JAX package's three programs:
 
 - ``render_tick``: insert a tick's events and render both surfaces
-  (kernel K3 rectifies each render);
+  (kernel K3 rectifies both backward renders in one launch);
 - ``mapping_estimate``: denoise -> compact -> LUT rectify -> pose-table
   interpolation -> ZNCC block matching -> windowed depth LM (kernels K1,
   K2) -> culling;
@@ -108,12 +108,15 @@ class MappingCycle(nn.Module):
         (st_l, st_r, surface_left, surface_right)."""
         cfg = self.cfg.surface
         t = torch.as_tensor(t_sync, dtype=torch.float32, device=self.device)
-        render = (tsf.render_backward if cfg.mode == "backward"
-                  else tsf.render_forward)
         st_l = tsf.insert_events(st_l, ev_l)
         st_r = tsf.insert_events(st_r, ev_r)
-        return (st_l, st_r, render(st_l, t, self._camera("left"), cfg),
-                render(st_r, t, self._camera("right"), cfg))
+        cam_l, cam_r = self._camera("left"), self._camera("right")
+        if cfg.mode == "backward":
+            s_l, s_r = tsf.render_backward_pair(st_l, st_r, t, cam_l, cam_r,
+                                                cfg)
+            return st_l, st_r, s_l, s_r
+        return (st_l, st_r, tsf.render_forward(st_l, t, cam_l, cfg),
+                tsf.render_forward(st_r, t, cam_r, cfg))
 
     def compact(self, valid: torch.Tensor, *arrays):
         """Move the first N valid lanes to the front (stable), so the

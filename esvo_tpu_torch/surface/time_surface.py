@@ -13,7 +13,8 @@ import torch
 import torch.nn.functional as F
 
 from esvo_tpu_torch._device import resolve_device
-from esvo_tpu_torch.geometry.camera import Camera, remap_bilinear
+from esvo_tpu_torch.geometry.camera import (Camera, remap_bilinear,
+                                            remap_bilinear_pair)
 
 # "no event yet at this pixel": large, negative and finite in f32, so
 # exp() stays defined and scatter-max of a masked lane is a no-op
@@ -212,16 +213,34 @@ def sobel_y(img: torch.Tensor) -> torch.Tensor:
     return _conv3(img, [[-1, -2, -1], [0, 0, 0], [1, 2, 1]])
 
 
+def _unrectified(state: TimeSurfaceState, t_sync,
+                 cfg: TimeSurfaceConfig) -> torch.Tensor:
+    """A BACKWARD-mode surface before rectification: decay at raw pixels,
+    8-bit levels, median blur."""
+    val, _ = _decayed(state, t_sync, cfg.decay_sec, cfg.ignore_polarity)
+    img = _to_8bit_levels(val, cfg.ignore_polarity)
+    if cfg.median_blur_kernel_size > 0:
+        img = median_blur(img, cfg.median_blur_kernel_size)
+    return img
+
+
 def render_backward(state: TimeSurfaceState, t_sync, camera: Camera,
                     cfg: TimeSurfaceConfig) -> torch.Tensor:
     """BACKWARD-mode surface at t_sync: decay at raw pixels, 8-bit levels,
     median blur, then rectify by bilinear remap (kernel K3 on the card).
     Returns (H, W) f32 with 0..255 values."""
-    val, _ = _decayed(state, t_sync, cfg.decay_sec, cfg.ignore_polarity)
-    img = _to_8bit_levels(val, cfg.ignore_polarity)
-    if cfg.median_blur_kernel_size > 0:
-        img = median_blur(img, cfg.median_blur_kernel_size)
-    return remap_bilinear(img, camera.inv_map, fill=0.0)
+    return remap_bilinear(_unrectified(state, t_sync, cfg), camera.inv_map,
+                          fill=0.0)
+
+
+def render_backward_pair(st_l: TimeSurfaceState, st_r: TimeSurfaceState,
+                         t_sync, cam_l: Camera, cam_r: Camera,
+                         cfg: TimeSurfaceConfig):
+    """render_backward for both cameras of a rig, rectified together (one
+    launch of kernel K3 on the card). Returns (left, right)."""
+    return remap_bilinear_pair(_unrectified(st_l, t_sync, cfg), cam_l.inv_map,
+                               _unrectified(st_r, t_sync, cfg), cam_r.inv_map,
+                               fill=0.0)
 
 
 def render_forward(state: TimeSurfaceState, t_sync, camera: Camera,

@@ -2,15 +2,20 @@
 at the rpg shapes (240x180 surfaces, N = 1000 events, 24x32 windows), and
 kernel K2 also at the DSEC shape (N = 10000), at patch sizes that give 1,
 4 and 8 pixels a lane, at edge event counts, and across repeat launches.
+Kernels K1 and K3 single and as pairs (two surfaces / two cameras in one
+launch) at the rpg, DSEC and DAVIS346 shapes, K1 at window shapes where a
+lane owns more or less than one column and at edge window counts, K3 on
+a shape whose pixel count is no multiple of 4.
 
 Run on a machine with an NVIDIA GPU:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (``tests/conftest.py`` imports JAX, which such a machine need not have).
 Without one every test skips. The checks are chip_smoke.py's:
-K1 bit-exact, K3 within atol 1e-5, K2 at the LM tolerances of
+K1 and K3 bit-exact, K2 at the LM tolerances of
 tests/test_torch_lm.py on at least 98% of the events.
 """
 import ctypes
+import math
 
 import pytest
 import torch
@@ -37,7 +42,7 @@ def rig(smoke):
 def test_remap_kernel(smoke, rig):
     before = smoke.remap.KERNEL.launches
     res = smoke.check_remap(rig, iters=5)
-    assert res["max_abs_err"] <= 1e-5
+    assert res["max_abs_err"] == 0.0
     assert smoke.remap.KERNEL.launches > before
 
 
@@ -199,3 +204,178 @@ def test_lm_launch_plan_on_the_card(smoke):
     assert plan["grid"] == info["sms"] * info["blocks_per_sm"]
     with pytest.raises(RuntimeError):    # 8 warps x 2 x 64x64 f32 > 227 KB
         lm.kernel_info(4, True, 64, 64)
+
+
+# --- K1 and K3 single and pair --------------------------------------------
+
+def _k1_inputs(shape, n, h, w, seed):
+    H, W = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    img = torch.rand((H, W), generator=gen, device="cuda") * 255
+    uy = torch.randint(-4, H - h + 4, (n,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    ux = torch.randint(-4, W - w + 4, (n,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    return img, uy, ux
+
+
+def _k1_against_twin(smoke, a, b, h, w):
+    """Single on a, pair on (a, b): each bitwise the twin's, one launch
+    each where there are windows."""
+    op = smoke.patches
+    before = op.KERNEL.launches
+    single = op.slice_patches(*a, h, w)
+    pair = op.slice_patches_pair(*a, *b, h, w)
+    torch.cuda.synchronize()
+    assert torch.equal(single, op.slice_patches_plain(*a, h, w))
+    assert torch.equal(pair[0], op.slice_patches_plain(*a, h, w))
+    assert torch.equal(pair[1], op.slice_patches_plain(*b, h, w))
+    assert pair[0].is_contiguous() and pair[1].is_contiguous()
+    na, nb = a[1].shape[0], b[1].shape[0]
+    assert op.KERNEL.launches == before + (na > 0) + (na + nb > 0)
+
+
+@pytest.mark.parametrize("shape, n", [((180, 240), 1000),
+                                      ((480, 640), 10000),
+                                      ((260, 346), 2000)])    # DAVIS346
+def test_patches_single_and_pair(smoke, shape, n):
+    _k1_against_twin(smoke, _k1_inputs(shape, n, 24, 32, 11),
+                     _k1_inputs(shape, n, 24, 32, 12), 24, 32)
+
+
+@pytest.mark.parametrize("h, w", [(16, 16), (8, 40), (8, 9), (64, 64),
+                                  (40, 100), (16, 33), (8, 1024)])
+def test_patches_window_shapes(smoke, h, w):
+    """Runs of 4 columns that wrap rows (16x16, 8x40), single columns
+    (8x9, 16x33), and windows of several bands (64x64, 40x100, 8x1024)."""
+    shape = (max(180, h + 8), max(240, w + 8))
+    _k1_against_twin(smoke, _k1_inputs(shape, 700, h, w, 13),
+                     _k1_inputs(shape, 333, h, w, 14), h, w)
+
+
+@pytest.mark.parametrize("n_a, n_b", [(0, 0), (1, 0), (0, 1), (1, 1),
+                                      (13, 1001), (1000, 7)])
+def test_patches_window_counts(smoke, n_a, n_b):
+    _k1_against_twin(smoke, _k1_inputs((180, 240), n_a, 24, 32, 15),
+                     _k1_inputs((180, 240), n_b, 24, 32, 16), 24, 32)
+
+
+def test_patches_starts_clamp_on_all_sides(smoke):
+    H, W, h, w = 180, 240, 24, 32
+    ys = [-10 ** 6, -1, 0, 5, H - h, H - h + 1, 10 ** 6]
+    xs = [-10 ** 6, -1, 0, 7, W - w, W - w + 1, 10 ** 6]
+    grid = torch.tensor([(y, x) for y in ys for x in xs], dtype=torch.int32,
+                        device="cuda")
+    img = _k1_inputs((H, W), 0, h, w, 17)[0]
+    a = (img, grid[:, 0].contiguous(), grid[:, 1].contiguous())
+    b = (img.flip(0).contiguous(), grid[:, 1].contiguous(),
+         grid[:, 0].contiguous())
+    _k1_against_twin(smoke, a, b, h, w)
+
+
+def test_patches_repeat_launch_is_bitwise(smoke):
+    a = _k1_inputs((480, 640), 10000, 24, 32, 18)
+    b = _k1_inputs((480, 640), 10000, 24, 32, 19)
+    first = smoke.patches.slice_patches_pair(*a, *b, 24, 32)
+    again = smoke.patches.slice_patches_pair(*a, *b, 24, 32)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def test_patches_launch_plan_on_the_card(smoke):
+    """The presets' instantiation spills nothing, fits at least one block
+    an SM, and its grid never exceeds what the card holds at once."""
+    op = smoke.patches
+    info = op.kernel_info(24, 32)
+    assert info["name"] == "slice_patches_kernel<6, 4>"
+    assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
+    grid = op.patches_launch_plan(10 ** 6, info["sms"], info["blocks_per_sm"],
+                                  info["warps"])
+    assert grid == info["sms"] * info["blocks_per_sm"]
+
+
+@pytest.mark.parametrize("h, w, rpl, vec, band_rows", [
+    (24, 32, 6, 4, 24),      # the presets' windows: 6 runs of 4 a lane
+    (16, 16, 2, 4, 16),      # a warp step covers 8 rows
+    (8, 40, 3, 4, 8),        # a lane's runs wrap across rows
+    (8, 9, 3, 1, 8),         # single columns, a partial last lane slot
+    (16, 33, 17, 1, 16),
+    (64, 64, 8, 4, 16),      # taller than one band: 4 bands of 16 rows
+    (40, 100, 8, 4, 10),     # 4 bands of 10 rows, the last lane slots idle
+    (3, 1024, 8, 4, 1),      # one row a band
+    (2, 1023, 32, 1, 1),
+])
+def test_window_plan_on_the_card(smoke, h, w, rpl, vec, band_rows):
+    """The launcher's window plan: runs of 4 columns where w % 4 == 0,
+    bands that fit 32 floats a lane, ceil(runs / 32) runs a lane."""
+    info = smoke.patches.kernel_info(h, w)
+    assert (info["rpl"], info["vec"], info["band_rows"]) == (rpl, vec,
+                                                             band_rows)
+    runs = band_rows * w // vec
+    assert runs <= 32 * rpl < runs + 32
+    assert rpl * vec <= 32
+
+
+@pytest.mark.parametrize("h, w", [(8, 1025), (8, 1028), (0, 8), (8, 0)])
+def test_window_plan_rejects_on_the_card(smoke, h, w):
+    with pytest.raises(ValueError):
+        smoke.patches.kernel_info(h, w)
+
+
+def _rot_map(H, W, angle, scale):
+    yy, xx = torch.meshgrid(torch.arange(H, dtype=torch.float64),
+                            torch.arange(W, dtype=torch.float64),
+                            indexing="ij")
+    cx, cy = W / 2, H / 2
+    ca, sa = math.cos(angle), math.sin(angle)
+    xs = scale * (ca * (xx - cx) - sa * (yy - cy)) + cx + 0.3
+    ys = scale * (sa * (xx - cx) + ca * (yy - cy)) + cy - 0.7
+    return torch.stack([xs, ys], -1).float().cuda()
+
+
+@pytest.mark.parametrize("shape", [(180, 240), (480, 640), (260, 346),
+                                   (37, 61)])
+def test_remap_single_and_pair(smoke, shape):
+    """Bitwise the twin's on both cameras, with maps that leave the image
+    (exact zeros) and a pixel count that is no multiple of 4 (37x61)."""
+    H, W = shape
+    op = smoke.remap
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    img_a, img_b = (torch.randint(0, 256, (H, W), generator=gen,
+                                  device="cuda").float() for _ in range(2))
+    map_a, map_b = _rot_map(H, W, 0.04, 1.02), _rot_map(H, W, -0.3, 1.6)
+    before = op.KERNEL.launches
+    single = op.remap(img_a, map_a)
+    pair = op.remap_pair(img_a, map_a, img_b, map_b)
+    again = op.remap_pair(img_a, map_a, img_b, map_b)
+    torch.cuda.synchronize()
+    want = (op.remap_plain(img_a, map_a, 0.0),
+            op.remap_plain(img_b, map_b, 0.0))
+    assert torch.equal(single, want[0])
+    assert all(torch.equal(x, y) for x, y in zip(pair, want))
+    assert all(torch.equal(x, y) for x, y in zip(pair, again))
+    assert (want[1] == 0).any()
+    assert op.KERNEL.launches == before + 3
+
+
+def test_remap_rejects_a_misaligned_map(smoke):
+    H, W = 37, 61
+    img = torch.zeros(H, W, device="cuda")
+    flat = torch.zeros(H * W * 2 + 1, device="cuda")
+    with pytest.raises(ValueError):
+        smoke.remap.remap(img, flat[1:].view(H, W, 2))
+
+
+def test_render_tick_is_one_remap_launch(smoke, rig):
+    """A backward render tick rectifies both surfaces in one K3 launch."""
+    cfg = smoke.MappingCycleConfig.from_dict(smoke.RPG)
+    cycle = smoke.MappingCycle(rig, cfg, device="cuda")
+    st = [smoke.tsf.init_state(cycle.H, cycle.W, "cuda") for _ in range(2)]
+    ev = smoke.tsf.EventBatch.from_arrays([3, 4], [5, 6], [0.001, 0.002],
+                                          [True, False], device="cuda")
+    before = smoke.remap.KERNEL.launches
+    out = cycle.render_tick(*st, ev, ev, 0.01)
+    assert smoke.remap.KERNEL.launches == before + 1
+    cams = (cycle.rig.left, cycle.rig.right)
+    for s, surf, cam in zip(out[:2], out[2:], cams):
+        assert torch.equal(surf, smoke.tsf.render_backward(s, torch.tensor(
+            0.01, device="cuda"), cam, cfg.surface))

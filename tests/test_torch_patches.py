@@ -89,3 +89,68 @@ def test_patch_interpolate_and_bilinear_sample():
                          torch.from_numpy(xi)).numpy(),
         np.asarray(jinterp.gather2d(jnp.asarray(img), jnp.asarray(yi),
                                     jnp.asarray(xi))))
+
+
+def _pair_inputs(rng, shape, n_a, n_b, h, w):
+    H, W = shape
+    imgs = [torch.from_numpy(rng.uniform(0, 255, (H, W)).astype(np.float32))
+            for _ in range(2)]
+    starts = [torch.from_numpy(rng.integers(lo, hi + 3, n).astype(np.int32))
+              for n in (n_a, n_b) for lo, hi in ((-3, H - h), (-3, W - w))]
+    return imgs[0], starts[0], starts[1], imgs[1], starts[2], starts[3]
+
+
+@pytest.mark.parametrize("n_a, n_b", [(37, 37), (5, 12), (0, 3), (0, 0)])
+def test_pair_on_cpu_is_two_single_calls(n_a, n_b):
+    """slice_patches_pair on CPU tensors: two calls of the twin, bitwise;
+    the pair router equals two single routers (here the flat gather)."""
+    h, w = 24, 32
+    a_img, a_y, a_x, b_img, b_y, b_x = _pair_inputs(
+        np.random.default_rng(7), (60, 80), n_a, n_b, h, w)
+    before = patches_op.KERNEL.launches
+    a, b = patches_op.slice_patches_pair(a_img, a_y, a_x, b_img, b_y, b_x,
+                                         h, w)
+    assert a.shape == (n_a, h, w) and b.shape == (n_b, h, w)
+    assert torch.equal(a, patches_op.slice_patches_plain(a_img, a_y, a_x,
+                                                         h, w))
+    assert torch.equal(b, patches_op.slice_patches_plain(b_img, b_y, b_x,
+                                                         h, w))
+    ra, rb = tinterp.slice_patches_pair(a_img, a_y, a_x, b_img, b_y, b_x,
+                                        h, w)
+    assert torch.equal(ra, tinterp.slice_patches(a_img, a_y, a_x, h, w))
+    assert torch.equal(rb, tinterp.slice_patches(b_img, b_y, b_x, h, w))
+    assert patches_op.KERNEL.launches == before
+
+
+def test_pair_router_keeps_batch_dims():
+    rng = np.random.default_rng(8)
+    img = torch.from_numpy(rng.uniform(0, 255, (40, 50)).astype(np.float32))
+    uy = torch.from_numpy(rng.integers(-4, 42, (3, 11)).astype(np.int32))
+    ux = torch.from_numpy(rng.integers(-4, 52, (2, 5)).astype(np.int32))
+    a, b = tinterp.slice_patches_pair(img, uy, uy, img, ux, ux, 8, 16)
+    assert a.shape == (3, 11, 8, 16) and b.shape == (2, 5, 8, 16)
+    assert torch.equal(b, tinterp.slice_patches(img, ux, ux, 8, 16))
+
+
+# --- kernel K1's launch plan (host arithmetic; no card needed) -------------
+# (the window plan, the instantiation for a window shape, is the launcher's
+# own: tests/test_torch_cuda.py checks it on the card)
+
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 9, 1000, 2000, 20000, 123457])
+@pytest.mark.parametrize("sms, blocks", [(132, 8), (132, 4), (1, 1)])
+def test_launch_plan_grid(n, sms, blocks):
+    """The grid is what the card holds at once, never more warps than
+    windows, and n = 0 launches nothing."""
+    grid = patches_op.patches_launch_plan(n, sms, blocks, 8)
+    assert grid <= -(-n // 8)
+    assert grid == min(-(-n // 8), sms * blocks)
+    assert (grid == 0) == (n == 0)
+
+
+def test_cpu_tensor_never_counts_a_launch():
+    before = patches_op.KERNEL.launches
+    img = torch.ones(30, 40)
+    uy = torch.zeros(4, dtype=torch.int32)
+    patches_op.slice_patches(img, uy, uy, 24, 32)
+    tinterp.slice_patches(img, uy, uy, 24, 32)
+    assert patches_op.KERNEL.launches == before

@@ -82,3 +82,60 @@ def test_cpu_tensor_never_counts_a_launch():
     m = torch.from_numpy(_rot_map(8, 9))
     remap_op.remap(img, m)
     assert remap_op.KERNEL.launches == before
+
+
+@pytest.mark.parametrize("shape", [(40, 56), (37, 61)])
+def test_pair_on_cpu_is_two_single_calls(shape):
+    """remap_pair on CPU tensors: two calls of the twin, bitwise, on two
+    images through two maps."""
+    H, W = shape
+    rng = np.random.default_rng(6)
+    imgs = [torch.from_numpy(rng.random((H, W)).astype(np.float32))
+            for _ in range(2)]
+    maps = [torch.from_numpy(_rot_map(H, W, angle=a, scale=s))
+            for a, s in ((0.04, 1.02), (-0.3, 1.6))]
+    before = remap_op.KERNEL.launches
+    a, b = remap_op.remap_pair(imgs[0], maps[0], imgs[1], maps[1])
+    assert torch.equal(a, remap_op.remap(imgs[0], maps[0]))
+    assert torch.equal(b, remap_op.remap(imgs[1], maps[1]))
+    assert torch.equal(b, remap_op.remap_plain(imgs[1], maps[1], 0.0))
+    assert remap_op.KERNEL.launches == before
+
+
+@pytest.mark.parametrize("shape", [(180, 240), (37, 61), (260, 346), (1, 3)])
+def test_pair_outputs_are_16_byte_aligned(shape):
+    """The pair's two outputs share one buffer; each starts on a 16-byte
+    boundary (the kernel's vector stores), whatever H*W mod 4 is."""
+    H, W = shape
+    a, b = remap_op.pair_outputs(H, W, "cpu")
+    assert a.shape == b.shape == (H, W)
+    assert a.is_contiguous() and b.is_contiguous()
+    assert a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    assert b.data_ptr() - a.data_ptr() >= 4 * H * W
+
+
+@pytest.mark.parametrize("shapes, fill", [
+    (((40, 56), (40, 56)), 0.0),      # what a render tick sends
+    (((40, 56), (40, 56)), 0.5),      # a nonzero fill never takes K3
+    (((40, 56), (37, 61)), 0.0),      # two shapes: two single calls
+])
+def test_remap_bilinear_pair_is_two_single_routes(shapes, fill):
+    """camera.remap_bilinear_pair on CPU tensors equals two
+    remap_bilinear calls bitwise and the JAX package's remap_bilinear, and
+    launches nothing."""
+    from esvo_tpu_torch.geometry import camera as tcam
+    rng = np.random.default_rng(7)
+    imgs = [rng.random(s).astype(np.float32) for s in shapes]
+    maps = [_rot_map(*s, angle=a, scale=k)
+            for s, (a, k) in zip(shapes, ((0.04, 1.02), (-0.3, 1.6)))]
+    t = [torch.from_numpy(x) for x in imgs + maps]
+    before = remap_op.KERNEL.launches
+    pair = tcam.remap_bilinear_pair(t[0], t[2], t[1], t[3], fill=fill)
+    assert remap_op.KERNEL.launches == before
+    for k in range(2):
+        assert torch.equal(pair[k], tcam.remap_bilinear(t[k], t[k + 2],
+                                                        fill=fill))
+        want = jcam.remap_bilinear(jnp.asarray(imgs[k]),
+                                   jnp.asarray(maps[k]), fill=fill)
+        np.testing.assert_allclose(pair[k].numpy(), np.asarray(want),
+                                   atol=1e-5)

@@ -144,3 +144,23 @@ def test_gaussian_and_sobel(ksize):
         np.testing.assert_allclose(
             getattr(tts, fn)(torch.from_numpy(img)).numpy(),
             np.asarray(getattr(jts, fn)(jnp.asarray(img))), atol=1e-5)
+
+
+@pytest.mark.parametrize("ignore_polarity, median", [(True, 1), (False, 1),
+                                                     (True, 0)])
+def test_render_backward_pair_is_two_renders(ignore_polarity, median):
+    """render_backward_pair equals render_backward per camera, bitwise, on
+    the distorted rig, with two different states."""
+    rng = np.random.default_rng(5)
+    _, st_l = _insert_both(rng)
+    _, st_r = _insert_both(rng)
+    rt = convert.rig_from_numpy(convert.rig_to_numpy(_distorted_rig_jax()),
+                                device="cpu")
+    ct = tts.TimeSurfaceConfig(ignore_polarity=ignore_polarity,
+                               median_blur_kernel_size=median)
+    t = torch.tensor(0.16)
+    left, right = tts.render_backward_pair(st_l, st_r, t, rt.left, rt.right,
+                                           ct)
+    assert torch.equal(left, tts.render_backward(st_l, t, rt.left, ct))
+    assert torch.equal(right, tts.render_backward(st_r, t, rt.right, ct))
+    assert not torch.equal(left, right)
