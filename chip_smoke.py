@@ -14,7 +14,15 @@
    rebuild) on synthetic scenes at rpg and DSEC scale, with per-stage
    times, the kernels' launch counts and the error against ground truth;
    the rpg cycle again through the CPU port (the twins) as the reference;
-5. the kernel table as one JSON line; the last line is the result.
+5. the closed loop (EsvoSystem: SGM bootstrap -> tracking <-> mapping) at
+   rpg, driven as the JAX package's closed-loop benchmark drives it:
+   process_ticks in rolls of 5 from INITIALIZATION to WORKING, then
+   flush(); per roll its status, times, map points and tracker stats; at
+   the end the ATE against the scene's ground truth, the kernels'
+   launches inside the loop, and a profiled tracked roll (launches per
+   tick, idle share); one tracking solve and one SGM bootstrap held
+   against the CPU port on the same inputs;
+6. the kernel table as one JSON line; the last line is the result.
 
 Any failed check raises, and the script then exits non-zero. Without a
 CUDA device it exits non-zero before printing any result.
@@ -39,13 +47,15 @@ from esvo_tpu_torch.geometry.camera import (PinholeParams, StereoRig,
                                             make_camera)
 from esvo_tpu_torch.geometry.se3 import se3_exp, se3_inverse
 from esvo_tpu_torch.io.events import EventArray, frame_events
+from esvo_tpu_torch.eval.trajectory import ate_rmse
 from esvo_tpu_torch.io.synthetic import (SyntheticScene, interpolate_gt_pose,
                                          make_scene, simulate_stereo_events)
 from esvo_tpu_torch.mapping import depth_refinement as dr
+from esvo_tpu_torch.mapping import initialization as init
 from esvo_tpu_torch.mapping.regularization import regularize
 from esvo_tpu_torch.ops import _build, lm, patches, remap
-from esvo_tpu_torch.runtime.config import MappingCycleConfig
-from esvo_tpu_torch.runtime.system import MappingCycle
+from esvo_tpu_torch.runtime.config import SystemConfig
+from esvo_tpu_torch.runtime.system import EsvoSystem, MappingCycle
 from esvo_tpu_torch.surface import time_surface as tsf
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
@@ -53,7 +63,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 F32 = torch.float32
 
-# configs/rpg.yaml and configs/dsec.yaml, the sections the cycle reads
+# configs/rpg.yaml and configs/dsec.yaml: the sections the mapping cycle
+# reads, and for rpg also those of the closed loop (SGM at its defaults,
+# the tracker, the tracking node)
 RPG = dict(
     surface=dict(decay_sec=0.03, ignore_polarity=True,
                  median_blur_kernel_size=1, mode="backward"),
@@ -68,7 +80,15 @@ RPG = dict(
                  age_max_range=10, age_vis_threshold=1,
                  fusion_strategy="CONST_POINTS", max_fusion_frames=40,
                  max_fusion_points=5000, denoising=True, regularization=True,
-                 process_event_num=1000))
+                 process_event_num=1000, init_sgm_num_threshold=500,
+                 mapping_rate_hz=20.0, bm_half_slice_thickness=0.001),
+    sgm=dict(num_disparities=48, block_size=11, p1=8.0 * 11 * 11,
+             p2=32.0 * 11 * 11, uniqueness_ratio=11.0, init_variance=0.001 ** 2),
+    tracker=dict(patch_size_x=1, patch_size_y=1, kernel_size=5,
+                 huber_threshold=50.0, max_registration_points=2000,
+                 batch_size=300, max_iteration=10, ls_norm="Huber",
+                 min_num_events=1000, use_numerical_diff=False),
+    tracking=dict(tracking_rate_hz=100.0, ref_history_length=10))
 DSEC = dict(
     surface=RPG["surface"],
     bm=dict(RPG["bm"], min_disparity=0, max_disparity=150,
@@ -101,13 +121,24 @@ RIGS = {
 # pushed out to 5-12 m, inside that preset's inverse-depth range), event
 # threshold (px), sync ticks, frame capacity. The motion has a 1 s period
 # and is simulated in 10 steps per tick, so every tick carries thousands
-# of events (enough to pass the rpg preset's denoiser and fill N).
-SCENES = {"rpg": dict(points=6000, scale=1.0, threshold=0.5, ticks=20,
-                      cap=8000, seed=1),
+# of events (enough to pass the rpg preset's denoiser and fill N). The
+# MappingCycle runs take the first `cycle_ticks`; the rpg closed loop
+# takes the first LOOP_ROLLS rolls and two more for its profile.
+SCENES = {"rpg": dict(points=6000, scale=1.0, threshold=0.5, ticks=100,
+                      cycle_ticks=20, cap=8000, seed=1),
           "dsec": dict(points=12000, scale=4.0, threshold=1.0, ticks=15,
-                       cap=40000, seed=2)}
+                       cycle_ticks=15, cap=40000, seed=2)}
 TICK = 0.01            # 100 Hz surfaces
 MAP_EVERY = 5          # 20 Hz mapping
+ROLL = 5               # ticks a process_ticks roll (bench.py's closed loop)
+LOOP_ROLLS = 18
+# ATE bar of the rpg closed loop (m), calibrated on the CPU port on the
+# same stream by scripts/torch_closed_loop_ate.py (PERF.md): its 90 ticks
+# score 0.038-0.058 m over twelve point-selection seeds, a pose held at
+# the start 0.092 m. The loop is chaotic at the centimetre level, so the
+# bar leaves room above the seeds' spread and stays below the static
+# pose's score.
+CLOSED_LOOP_ATE_BAR = 0.07
 
 
 def log(obj) -> None:
@@ -209,12 +240,13 @@ def _to_raw(ev: EventArray, inv_map: np.ndarray, mask: np.ndarray):
     return EventArray(t=ev.t[keep], x=xr[keep], y=yr[keep], p=ev.p[keep])
 
 
-def make_stream(name: str, rig: StereoRig):
-    """Synthetic scene, raw event frames for both cameras, sync ticks."""
+def make_stream(name: str, rig: StereoRig, n_ticks: int | None = None):
+    """Synthetic scene, raw event frames for both cameras, sync ticks
+    (SCENES' count unless n_ticks is given)."""
     s = SCENES[name]
     W, H = rig.left.width, rig.left.height
     rng = np.random.default_rng(s["seed"])
-    n_ticks = s["ticks"]
+    n_ticks = n_ticks or s["ticks"]
     duration = (n_ticks + 1) * TICK
     scene = make_scene(rng, num_points=s["points"], duration=duration,
                        steps=10 * (n_ticks + 1) + 1, motion_scale=1.0,
@@ -368,7 +400,7 @@ def launch_floor(iters: int = 200) -> dict:
                 timing=t["timing"])
 
 
-def lm_world(rig: StereoRig, cfg: MappingCycleConfig, n: int, disp: int,
+def lm_world(rig: StereoRig, cfg: SystemConfig, n: int, disp: int,
              seed: int):
     """The depth solve's kernel inputs on a textured stereo pair whose
     right surface is the left one shifted by `disp` pixels plus noise of
@@ -391,7 +423,7 @@ def lm_world(rig: StereoRig, cfg: MappingCycleConfig, n: int, disp: int,
                              t(ts_r), rig, cfg.depth)
 
 
-def check_lm(rig: StereoRig, cfg: MappingCycleConfig, n: int, disp: int,
+def check_lm(rig: StereoRig, cfg: SystemConfig, n: int, disp: int,
              iters: int = 20) -> dict:
     """K2 against its twin, launched twice (the two launches must agree
     bit for bit), with its launch plan and the work the data asked for."""
@@ -526,15 +558,16 @@ def gt_rel_err(est: dr.DepthEstimates, points: np.ndarray,
     return float(e.median()) if e.numel() else float("nan")
 
 
-def _profiled(fn) -> dict:
+def _profiled(fn, again=None) -> dict:
     """Wall time of fn unprofiled, then its device busy time, idle share
-    and heaviest kernels from a profiled repeat."""
+    and heaviest kernels from a profiled repeat (of `again`, where fn
+    cannot run twice on the same inputs)."""
     t0 = _sync("cuda")
     fn()
     wall = (_sync("cuda") - t0) * 1e3
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
-        fn()
+        (again or fn)()
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
@@ -559,7 +592,7 @@ def profile_cycle(cycle: MappingCycle, args) -> dict:
         regularize=_profiled(lambda: regularize(grid, cycle.cfg.regularizer)))
 
 
-def run_cycle(name: str, rig: StereoRig, cfg: MappingCycleConfig, scene,
+def run_cycle(name: str, rig: StereoRig, cfg: SystemConfig, scene,
               ticks, frames, device) -> list[dict]:
     """Drive MappingCycle over the ticks; one record per mapping cycle,
     and on the card a profile of the last one."""
@@ -645,6 +678,147 @@ def compare_to_cpu(card: list[dict], ref: list[dict]) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the closed loop
+# ---------------------------------------------------------------------------
+
+def _roll_inputs(frames, ticks, k0: int):
+    sl = slice(k0, k0 + ROLL)
+    return (ticks[sl],) + tuple(
+        {k: v[sl] for k, v in f.items() if k != "dropped"} for f in frames)
+
+
+def _time_stages(system: EsvoSystem, device, times: list) -> None:
+    """Wrap the system's mapping dispatch and SGM bootstrap so each call
+    is timed between synchronizations (ms appended to `times`)."""
+    for name in ("_dispatch_mapping", "_sgm_bootstrap"):
+        fn = getattr(system, name)
+
+        def timed_stage(*a, _fn=fn, **kw):
+            t0 = _sync(device)
+            out = _fn(*a, **kw)
+            times.append((_sync(device) - t0) * 1e3)
+            return out
+        setattr(system, name, timed_stage)
+
+
+def pose_angle(Ra: np.ndarray, Rb: np.ndarray) -> float:
+    """Angle (rad) between two rotations, exact near zero."""
+    E = Ra @ Rb.T
+    w = 0.5 * np.array([E[2, 1] - E[1, 2], E[0, 2] - E[2, 0],
+                        E[1, 0] - E[0, 1]])
+    return float(np.arctan2(np.linalg.norm(w), (np.trace(E) - 1) / 2))
+
+
+def run_closed_loop(rig: StereoRig, cfg: SystemConfig, scene, ticks, frames,
+                    device, log_rolls: bool = True, seed: int = 0) -> dict:
+    """EsvoSystem over LOOP_ROLLS rolls of ROLL ticks, as the JAX
+    package's closed-loop benchmark drives it, then flush(). Returns the
+    system, the per-roll records, the ATE (and a static pose's) and the
+    bootstrap's surfaces. `seed` seeds the tracker's point selection."""
+    system = EsvoSystem(rig, cfg, device=device, seed=seed)
+    stage_ms: list = []
+    _time_stages(system, device, stage_ms)
+    rolls, boot = [], None
+    for r in range(LOOP_ROLLS):
+        t_r, ev_l, ev_r = _roll_inputs(frames, ticks, r * ROLL)
+        n_stage = len(stage_ms)
+        t0 = _sync(device)
+        out = system.process_ticks(t_r, ev_l, ev_r)
+        wall = (_sync(device) - t0) * 1e3
+        if "sgm_points" in out and boot is None:
+            boot = (out["ts_left"], out["ts_right"], out["sgm_points"])
+        rec = dict(roll=r, device=str(device), status=out["status"],
+                   roll_ms=wall, ms_per_tick=wall / ROLL,
+                   mapping_ms=sum(stage_ms[n_stage:]),
+                   map_points=out["map_points"],
+                   sgm_points=out.get("sgm_points"),
+                   map_estimates=out.get("map_estimates"),
+                   lm_stats=out.get("lm_stats"))
+        rolls.append(rec)
+        if log_rolls:
+            log(dict(closed_loop="rpg", **rec))
+    system.flush()
+    t_est, T_est = system.trajectory()
+    if not np.isfinite(T_est).all():
+        raise AssertionError("closed loop: a non-finite pose")
+    gt = np.stack([interpolate_gt_pose(scene, t) for t in t_est])
+    static = np.repeat(np.eye(4)[None], len(t_est), axis=0)
+    return dict(system=system, rolls=rolls, boot=boot,
+                ate=ate_rmse(t_est, T_est, t_est, gt, align=True),
+                static_ate=ate_rmse(t_est, static, t_est, gt, align=True),
+                ticks=len(t_est), stage_ms=stage_ms)
+
+
+def profile_tracked_roll(system: EsvoSystem, ticks, frames) -> dict:
+    """Two more tracked rolls without a mapping cycle: the first's wall
+    time, the second's device busy time and launches (_profiled)."""
+    k0 = LOOP_ROLLS * ROLL
+    first = _roll_inputs(frames, ticks, k0)
+    second = _roll_inputs(frames, ticks, k0 + ROLL)
+    prof = _profiled(lambda: system.process_ticks(*first, do_mapping=False),
+                     again=lambda: system.process_ticks(*second,
+                                                        do_mapping=False))
+    prof["launches_per_tick"] = prof["device_launches"] / ROLL
+    prof["wall_ms_per_tick"] = prof["wall_ms"] / ROLL
+    return prof
+
+
+def check_tracking_solve(system: EsvoSystem, cpu_rig: StereoRig,
+                         cfg: SystemConfig) -> dict:
+    """One tracking solve on the card and through the CPU port, on the same
+    surface and the same selected points; the pose must agree within the
+    CPU parity test's tolerance (1e-4 m, 1e-4 rad)."""
+    ref = system._current_ref_map()
+    pts, ok = system.select_ref_points(ref[0], ref[1])
+    st_l = system.ts_state_left
+    s_l = system.cycle.render_left(st_l, system.last_tick_time)
+    T_wf = system._tensor(system.T_world_frame)
+    T_cur = system._tensor(system.T_world_cur)
+    t0 = _sync("cuda")
+    T_card, rms_card = system.track(s_l, T_wf, T_cur, pts, ok)
+    card_ms = (_sync("cuda") - t0) * 1e3
+    cpu = EsvoSystem(cpu_rig, cfg, device="cpu")
+    t0 = time.perf_counter()
+    T_cpu, rms_cpu = cpu.track(s_l.cpu(), T_wf.cpu(), T_cur.cpu(), pts.cpu(),
+                               ok.cpu())
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    a, b = T_card.double().cpu().numpy(), T_cpu.double().numpy()
+    res = dict(compare="rpg tracking solve, card vs CPU port",
+               points=int(ok.sum()), t_diff_m=float(np.linalg.norm(
+                   a[:3, 3] - b[:3, 3])),
+               R_diff_rad=pose_angle(a[:3, :3], b[:3, :3]),
+               rms_card=rms_card.cpu().tolist(), rms_cpu=rms_cpu.tolist(),
+               card_ms=card_ms, cpu_ms=cpu_ms)
+    if not (res["t_diff_m"] < 1e-4 and res["R_diff_rad"] < 1e-4):
+        raise AssertionError(f"tracking solve: card and CPU disagree: {res}")
+    return res
+
+
+def check_sgm(boot, cfg: SystemConfig) -> dict:
+    """The bootstrap's SGM on the card and through the CPU port on the same
+    surfaces: best disparity and validity on >= 99.5% of the pixels (the
+    CPU parity test's bar on rendered surfaces), and both times."""
+    s_l, s_r, _ = boot
+    sgm = lambda a, b: init.semi_global_matching(a, b, cfg.sgm)
+    t0 = _sync("cuda")
+    d_card, v_card = sgm(s_l, s_r)
+    card_ms = (_sync("cuda") - t0) * 1e3
+    t0 = time.perf_counter()
+    d_cpu, v_cpu = sgm(s_l.cpu(), s_r.cpu())
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    d_card, v_card = d_card.cpu(), v_card.cpu()
+    res = dict(compare="rpg SGM bootstrap, card vs CPU port",
+               best_disparity_agreement=float(
+                   (torch.round(d_card) == torch.round(d_cpu)).float().mean()),
+               valid_agreement=float((v_card == v_cpu).float().mean()),
+               valid_share=float(v_cpu.float().mean()), card_ms=card_ms,
+               cpu_ms=cpu_ms)
+    if min(res["best_disparity_agreement"], res["valid_agreement"]) < 0.995:
+        raise AssertionError(f"SGM: card and CPU disagree: {res}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "remap": dict(name="K3 remap", module=remap,
@@ -680,7 +854,7 @@ def main() -> int:
             if not fn.startswith("slice_patches_kernel<"):   # see k1_launch
                 log(f"ptxas {src} {fn}: {rep}")
 
-    cfgs = {name: MappingCycleConfig.from_dict(d)
+    cfgs = {name: SystemConfig.from_dict(d)
             for name, d in (("rpg", RPG), ("dsec", DSEC))}
     rigs = {name: make_rig(name, "cuda") for name in RIGS}
     shapes = {"rpg": dict(n=1000, disp=8), "dsec": dict(n=10000, disp=40)}
@@ -703,8 +877,10 @@ def main() -> int:
     for name in ("rpg", "dsec"):
         for info in KERNELS.values():
             info["module"].KERNEL.launches = 0
-        records[name] = run_cycle(name, rigs[name], cfgs[name],
-                                  *streams[name], "cuda")
+        scene, ticks, frames = streams[name]
+        records[name] = run_cycle(name, rigs[name], cfgs[name], scene,
+                                  ticks[:SCENES[name]["cycle_ticks"]], frames,
+                                  "cuda")
         launches[name] = {k: info["module"].KERNEL.launches
                           for k, info in KERNELS.items()}
         for rec in records[name]:
@@ -723,15 +899,48 @@ def main() -> int:
 
     cpu_rig = convert.rig_from_numpy(convert.rig_to_numpy(rigs["rpg"]),
                                      device="cpu")
-    ref = run_cycle("rpg", cpu_rig, cfgs["rpg"], *streams["rpg"], "cpu")
+    scene, ticks, frames = streams["rpg"]
+    ref = run_cycle("rpg", cpu_rig, cfgs["rpg"], scene,
+                    ticks[:SCENES["rpg"]["cycle_ticks"]], frames, "cpu")
     log(compare_to_cpu(records["rpg"], ref))
+
+    for info in KERNELS.values():
+        info["module"].KERNEL.launches = 0
+    loop = run_closed_loop(rigs["rpg"], cfgs["rpg"], scene, ticks, frames,
+                           "cuda")
+    launches["closed_loop"] = {k: info["module"].KERNEL.launches
+                               for k, info in KERNELS.items()}
+    system = loop["system"]
+    tracked = [r for r in loop["rolls"] if r["lm_stats"] is not None]
+    summary = dict(
+        closed_loop="rpg", card=card, status=system.status.value,
+        ticks=loop["ticks"], tracked_rolls=len(tracked),
+        ate_m=loop["ate"], ate_bar_m=CLOSED_LOOP_ATE_BAR,
+        static_pose_ate_m=loop["static_ate"],
+        tracking_rejects=system.stats["tracking_rejects"],
+        launches=launches["closed_loop"],
+        sgm_bootstrap_ms=loop["stage_ms"][0],
+        ms_per_tracked_tick=[r["ms_per_tick"] for r in tracked],
+        mapping_ms=[r["mapping_ms"] for r in tracked])
+    summary["tracked_roll_profile"] = profile_tracked_roll(system, ticks,
+                                                           frames)
+    log(summary)
+    if not (system.status.value == "WORKING" and tracked
+            and min(launches["closed_loop"].values()) > 0
+            and loop["ate"] < CLOSED_LOOP_ATE_BAR):
+        raise AssertionError(f"closed loop failed: status "
+                             f"{system.status.value}, ATE {loop['ate']}, "
+                             f"launches {launches['closed_loop']}")
+    log(dict(check_tracking_solve(system, cpu_rig, cfgs["rpg"]), card=card))
+    log(dict(check_sgm(loop["boot"], cfgs["rpg"]), card=card))
 
     table = []
     for k, info in KERNELS.items():
         rpg, dsec = checks[(k, "rpg")], checks[(k, "dsec")]
         entry = dict(name=info["name"], route="cuda", source=info["source"],
                      replaces=info["replaces"],
-                     launches=launches["rpg"][k] + launches["dsec"][k])
+                     launches=sum(n[k] for n in launches.values()),
+                     closed_loop_launches=launches["closed_loop"][k])
         entry.update(ms=rpg["kernel_ms"], **{key: rpg[key] for key in (
             "max_abs_err", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "call_ms", "timing")})

@@ -4,13 +4,18 @@ A second package beside the JAX reference (``esvo_tpu``), with the same
 module layout so each function has an obvious counterpart:
 
 - ``geometry``  — SE(3)/SO(3) helpers, camera models, rectification maps;
-- ``ops``       — patch/window gathers, and the three hand-written CUDA
-  kernels (``remap``, ``patches``, ``lm``) with their plain twins;
+- ``ops``       — patch/window gathers, the small SPD solve, and the three
+  hand-written CUDA kernels (``remap``, ``patches``, ``lm``) with their
+  plain twins;
 - ``surface``   — the time-surface engine;
 - ``mapping``   — block matching, the depth LM, fusion, regularization,
-  denoising;
-- ``runtime``   — the mapping-cycle configuration and ``MappingCycle``;
-- ``io``        — event framing and the synthetic stereo scene.
+  denoising and the SGM bootstrap;
+- ``tracking``  — the 6-DoF registration tracker;
+- ``runtime``   — ``SystemConfig``, ``MappingCycle``, ``EsvoSystem`` (the
+  closed loop) and checkpoints;
+- ``eval``      — ATE / RPE and TUM trajectories;
+- ``io``        — event framing and the synthetic stereo scene;
+- ``utils``     — the debug maps.
 
 The package imports torch and numpy only (never jax or esvo_tpu). Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``; on the

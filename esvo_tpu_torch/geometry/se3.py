@@ -11,9 +11,11 @@ import torch
 
 def cayley_to_rot(c: torch.Tensor) -> torch.Tensor:
     """Cayley parameters (..., 3) -> rotation matrices (..., 3, 3)."""
-    c1, c2, c3 = c[..., 0], c[..., 1], c[..., 2]
+    # (..., 1) slices, not 0-d elements: under torch.func.jacfwd a Python
+    # float meeting a 0-d float32 tensor promotes to float64
+    c1, c2, c3 = c[..., 0:1], c[..., 1:2], c[..., 2:3]
     s = 1.0 + c1 * c1 + c2 * c2 + c3 * c3
-    r = torch.stack([
+    r = torch.cat([
         1.0 + c1 * c1 - c2 * c2 - c3 * c3,
         2.0 * (c1 * c2 - c3),
         2.0 * (c1 * c3 + c2),
@@ -24,7 +26,7 @@ def cayley_to_rot(c: torch.Tensor) -> torch.Tensor:
         2.0 * (c2 * c3 + c1),
         1.0 - c1 * c1 - c2 * c2 + c3 * c3,
     ], dim=-1).reshape(c.shape[:-1] + (3, 3))
-    return r / s[..., None, None]
+    return r / s[..., None]
 
 
 def rot_to_cayley(R: torch.Tensor) -> torch.Tensor:
@@ -201,6 +203,41 @@ def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     return se3_matrix(Rt, -torch.einsum("...ij,...j->...i", Rt, t))
 
 
+def se3_compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(A, B)
+
+
+def transform_points(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) to points (..., N, 3) or (..., 3)."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    return torch.einsum("...ij,...j->...i", R, p) + t
+
+
+def orthonormalize_rotation(R: torch.Tensor) -> torch.Tensor:
+    """Project (..., 3, 3) onto SO(3) via SVD (U V^T), fixing handedness.
+    For callers far from SO(3); the tracker's LM rounds use the fast
+    form."""
+    U, _, Vt = torch.linalg.svd(R)
+    det = torch.linalg.det(torch.matmul(U, Vt))
+    sign = torch.where(det < 0, -1.0, 1.0).to(R.dtype)
+    U = torch.cat([U[..., :, :2], U[..., :, 2:] * sign[..., None, None]],
+                  dim=-1)
+    return torch.matmul(U, Vt)
+
+
+def orthonormalize_rotation_fast(R: torch.Tensor) -> torch.Tensor:
+    """Project a NEARLY orthogonal (..., 3, 3) matrix onto SO(3) with two
+    Newton-Schulz polar steps R <- R (3I - R^T R) / 2. Quadratic
+    convergence: for the ~1e-6 drift of a product of rotations it matches
+    the SVD projection to f32 precision. Not valid far from SO(3)."""
+    eye3 = 3.0 * torch.eye(3, dtype=R.dtype, device=R.device)
+    for _ in range(2):
+        R = 0.5 * torch.matmul(R, eye3 - torch.matmul(R.transpose(-1, -2),
+                                                      R))
+    return R
+
+
 def interpolate_pose(t0, T0: torch.Tensor, t1, T1: torch.Tensor,
                      t) -> torch.Tensor:
     """Pose at time t between stamped poses (t0, T0), (t1, T1): lerp on
@@ -239,6 +276,15 @@ def rows_from_matrices(T: torch.Tensor) -> torch.Tensor:
     """(..., 4, 4) -> (12, ...)."""
     flat = T[..., :3, :4].reshape(T.shape[:-2] + (12,))
     return torch.movedim(flat, -1, 0)
+
+
+def matrices_from_rows(rows: torch.Tensor) -> torch.Tensor:
+    """(12, ...) -> (..., 4, 4) with the affine bottom row appended."""
+    batch = tuple(rows.shape[1:])
+    T34 = torch.movedim(rows, 0, -1).reshape(batch + (3, 4))
+    bottom = torch.zeros(batch + (1, 4), dtype=rows.dtype, device=rows.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([T34, bottom], dim=-2)
 
 
 def rows_apply(rows: torch.Tensor, px, py, pz):

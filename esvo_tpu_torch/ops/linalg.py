@@ -1,0 +1,30 @@
+"""Small symmetric positive-definite solves (port of esvo_tpu/ops/linalg.py).
+
+The tracker solves one 6x6 normal equation per LM round. The JAX package
+unrolls the Cholesky factorization into scalar ops so that XLA fuses it
+into the round; in eager PyTorch an unrolled 6x6 factorization is ~170
+separate launches. Here it is the library factorization without its
+error check (``cholesky_ex``: no host sync) and two triangular solves,
+a handful of launches on either device.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b for small symmetric positive-definite A (..., n, n).
+
+    The same contract as the JAX package's: a singular or indefinite A
+    gives a non-finite x (NaN here, wherever the factorization reports a
+    failed pivot), and callers guard with ``torch.isfinite``. No host
+    sync: the failure flag stays on the device."""
+    n = A.shape[-1]
+    if A.shape[-2:] != (n, n) or b.shape[-1] != n:
+        raise ValueError(f"solve_spd wants (..., n, n) and (..., n), got "
+                         f"{tuple(A.shape)} and {tuple(b.shape)}")
+    L, info = torch.linalg.cholesky_ex(A, check_errors=False)
+    y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
+    x = torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
+    return torch.where((info == 0)[..., None], x,
+                       torch.full_like(x, float("nan")))

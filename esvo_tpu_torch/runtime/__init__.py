@@ -1,1 +1,1 @@
-"""The mapping-cycle configuration and MappingCycle."""
+"""SystemConfig, MappingCycle, EsvoSystem and checkpoints."""

@@ -1,8 +1,7 @@
-"""The WORKING mapping cycle (the part of esvo_tpu/runtime/system.py this
-port has so far).
+"""The ESVO system loop (port of esvo_tpu/runtime/system.py).
 
 ``MappingCycle`` holds the stereo rig as buffers and the fusion window as
-state. One cycle is the JAX package's three programs:
+state. Its programs are the JAX package's:
 
 - ``render_tick``: insert a tick's events and render both surfaces
   (kernel K3 rectifies both backward renders in one launch);
@@ -10,39 +9,61 @@ state. One cycle is the JAX package's three programs:
   interpolation -> ZNCC block matching -> windowed depth LM (kernels K1,
   K2) -> culling;
 - ``rebuild_frame``: propagate the whole window -> Student-t fusion ->
-  clean -> regularize -> export the map points.
+  clean -> regularize -> export the map points;
+- ``sgm_estimate`` and ``seed_frame``: the SGM bootstrap and its naive
+  fusion.
 
-Tracking, the SGM bootstrap and the system state machine come with later
-slices of the port.
+``EsvoSystem`` is the host-side scheduler around one ``MappingCycle``:
+per sync tick it renders the surfaces and, while WORKING, registers the
+map to the new left surface (the tracker); every 1 / mapping_rate it runs
+a mapping cycle (or, in INITIALIZATION, the SGM bootstrap). It keeps the
+state machine, the pose table with its rigidity and velocity guard, the
+REF_HISTORY ring of map exports, the global cloud and the trajectory.
+``process_ticks`` is the fused roll: K inserts and K chained tracking
+solves (one left render a tick), one point selection, both surfaces
+rendered once at the end, and the mapping cycle's hand-off one roll late.
+
+Each entry point runs on ``cuda`` unless the caller passes ``device=``.
+The tracker's stochastic point selection draws from a ``torch.Generator``
+on the system's device, seeded from ``seed`` (the JAX package's
+``jax.random`` stream cannot be reproduced); ``select_ref_points`` is
+separate from the track bodies, so a caller can hand them any selection.
 """
 from __future__ import annotations
 
+import enum
+import os
+import warnings
+
+import numpy as np
 import torch
 from torch import nn
 
 from esvo_tpu_torch._device import resolve_device
 from esvo_tpu_torch.geometry.camera import Camera, PinholeParams, StereoRig
-from esvo_tpu_torch.geometry.se3 import interpolate_pose_table, se3_inverse
+from esvo_tpu_torch.geometry.se3 import (interpolate_pose_table, se3_inverse,
+                                         transform_points)
 from esvo_tpu_torch.mapping import block_matching as bm
 from esvo_tpu_torch.mapping import depth_refinement as dr
 from esvo_tpu_torch.mapping import fusion as fu
 from esvo_tpu_torch.mapping import initialization as init
 from esvo_tpu_torch.mapping.regularization import regularize
 from esvo_tpu_torch.ops.interp import gather2d
-from esvo_tpu_torch.runtime.config import MappingCycleConfig
+from esvo_tpu_torch.runtime.config import SystemConfig
 from esvo_tpu_torch.surface import time_surface as tsf
+from esvo_tpu_torch.tracking import registration as reg
 
 _CAMERA_TENSORS = ("K", "D", "R", "P")
 _CAMERA_MAPS = ("lut", "inv_map", "mask")
 
 
 class MappingCycle(nn.Module):
-    """One stereo rig's WORKING mapping cycle with its fusion window."""
+    """One stereo rig's mapping programs with its fusion window."""
 
-    def __init__(self, rig: StereoRig, cfg: MappingCycleConfig | None = None,
+    def __init__(self, rig: StereoRig, cfg: SystemConfig | None = None,
                  device=None):
         super().__init__()
-        self.cfg = cfg or MappingCycleConfig()
+        self.cfg = cfg or SystemConfig()
         dev = resolve_device(device)
         self._meta = {}
         for side in ("left", "right"):
@@ -71,7 +92,7 @@ class MappingCycle(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.left_lut.dtype
 
-    def _camera(self, side: str) -> Camera:
+    def camera(self, side: str) -> Camera:
         width, height, model = self._meta[side]
         g = lambda name: getattr(self, f"{side}_{name}")
         params = PinholeParams(K=g("K"), D=g("D"), R=g("R"), P=g("P"),
@@ -81,8 +102,8 @@ class MappingCycle(nn.Module):
 
     @property
     def rig(self) -> StereoRig:
-        return StereoRig(left=self._camera("left"),
-                         right=self._camera("right"),
+        return StereoRig(left=self.camera("left"),
+                         right=self.camera("right"),
                          T_right_left=self.T_right_left,
                          baseline=self.baseline)
 
@@ -100,24 +121,37 @@ class MappingCycle(nn.Module):
             valid=torch.zeros((F, N), dtype=torch.bool, device=dev))
         self.hist_slot = 0
 
-    # -- the three programs of one cycle -----------------------------------
+    # -- surfaces ------------------------------------------------------------
+    def render_left(self, st_l: tsf.TimeSurfaceState, t_sync):
+        """The left surface alone (the tracker's per-tick input)."""
+        cfg = self.cfg.surface
+        t = torch.as_tensor(t_sync, dtype=torch.float32, device=self.device)
+        render = (tsf.render_backward if cfg.mode == "backward"
+                  else tsf.render_forward)
+        return render(st_l, t, self.camera("left"), cfg)
+
+    def render_pair(self, st_l: tsf.TimeSurfaceState,
+                    st_r: tsf.TimeSurfaceState, t_sync):
+        """Both surfaces at t_sync; backward renders share one K3
+        launch."""
+        cfg = self.cfg.surface
+        t = torch.as_tensor(t_sync, dtype=torch.float32, device=self.device)
+        cam_l, cam_r = self.camera("left"), self.camera("right")
+        if cfg.mode == "backward":
+            return tsf.render_backward_pair(st_l, st_r, t, cam_l, cam_r, cfg)
+        return (tsf.render_forward(st_l, t, cam_l, cfg),
+                tsf.render_forward(st_r, t, cam_r, cfg))
+
     def render_tick(self, st_l: tsf.TimeSurfaceState,
                     st_r: tsf.TimeSurfaceState, ev_l: tsf.EventBatch,
                     ev_r: tsf.EventBatch, t_sync):
         """Insert one tick's events, render both surfaces. Returns
         (st_l, st_r, surface_left, surface_right)."""
-        cfg = self.cfg.surface
-        t = torch.as_tensor(t_sync, dtype=torch.float32, device=self.device)
         st_l = tsf.insert_events(st_l, ev_l)
         st_r = tsf.insert_events(st_r, ev_r)
-        cam_l, cam_r = self._camera("left"), self._camera("right")
-        if cfg.mode == "backward":
-            s_l, s_r = tsf.render_backward_pair(st_l, st_r, t, cam_l, cam_r,
-                                                cfg)
-            return st_l, st_r, s_l, s_r
-        return (st_l, st_r, tsf.render_forward(st_l, t, cam_l, cfg),
-                tsf.render_forward(st_r, t, cam_r, cfg))
+        return (st_l, st_r) + tuple(self.render_pair(st_l, st_r, t_sync))
 
+    # -- the mapping programs ------------------------------------------------
     def compact(self, valid: torch.Tensor, *arrays):
         """Move the first N valid lanes to the front (stable), so the
         batched stages run at the fixed width N."""
@@ -149,8 +183,6 @@ class MappingCycle(nn.Module):
         matches, bm_stats = bm.match_events_stats(
             ts_l, ts_r, x_rect, x_rect, ev_t, ev_valid, rig.left.mask, rig,
             cfg.bm)
-        # f32 batched product; TF32 stays off (PyTorch's default for
-        # matmul, torch.backends.cuda.matmul.allow_tf32 == False)
         T_lv = torch.matmul(se3_inverse(T_world_frame), T_wv)
         est = dr.solve(matches.x_left, T_wv, T_lv, matches.inv_depth,
                        matches.valid, ev_t, ts_l, ts_r, rig, cfg.depth)
@@ -165,7 +197,7 @@ class MappingCycle(nn.Module):
         clean, regularize. Returns (grid, points_world, occupied,
         num_fused, num_dropped)."""
         cfg, H, W = self.cfg, self.H, self.W
-        left = self._camera("left")
+        left = self.camera("left")
         flat = history.map(lambda a: a.reshape((-1,) + a.shape[2:]))
         grid = fu.empty_grid(H, W, self.dtype, self.device)
         cand = fu.propagate_points(flat, se3_inverse(T_world_frame), left,
@@ -180,6 +212,33 @@ class MappingCycle(nn.Module):
         pts_world, occ = fu.grid_points_world(grid, T_world_frame)
         return grid, pts_world, occ, nfused, ndrop
 
+    def sgm_estimate(self, ts_l, ts_r, ev_x, ev_y, ev_valid,
+                     T_world_frame):
+        """The SGM bootstrap's estimates at the tick's first N valid
+        events. Returns (estimates (N,), number valid)."""
+        cfg = self.cfg
+        ev_valid, ev_x, ev_y = self.compact(ev_valid, ev_x, ev_y)
+        est = init.sgm_depth_points(
+            ts_l, ts_r, self.lut_lookup(ev_y, ev_x), ev_valid,
+            T_world_frame, self.rig, cfg.sgm,
+            cfg.mapping.inv_depth_min_range, cfg.mapping.inv_depth_max_range,
+            init_age=cfg.mapping.age_vis_threshold)
+        return est, torch.sum(est.valid)
+
+    def seed_frame(self, history: dr.DepthEstimates,
+                   T_world_frame: torch.Tensor):
+        """Naive fusion of the window for the SGM bootstrap. Returns
+        (grid, points_world, occupied)."""
+        left = self.camera("left")
+        flat = history.map(lambda a: a.reshape((-1,) + a.shape[2:]))
+        cand = fu.propagate_points(flat, se3_inverse(T_world_frame), left,
+                                   self.cfg.fusion)
+        grid = fu.naive_fuse_frame(
+            fu.empty_grid(self.H, self.W, self.dtype, self.device), cand,
+            left, self.cfg.fusion)
+        pts_world, occ = fu.grid_points_world(grid, T_world_frame)
+        return grid, pts_world, occ
+
     def push_history(self, est: dr.DepthEstimates) -> None:
         """Write one cycle's estimates into the next ring slot."""
         slot = self.hist_slot
@@ -187,3 +246,626 @@ class MappingCycle(nn.Module):
             getattr(self.history, name)[slot] = getattr(est, name).to(
                 getattr(self.history, name).dtype)
         self.hist_slot = (slot + 1) % self.F
+
+
+# ---------------------------------------------------------------------------
+# the closed loop
+# ---------------------------------------------------------------------------
+
+def _pose_is_rigid(T: np.ndarray, tol: float = 0.05) -> bool:
+    """Finite, near-orthonormal rotation with det ~ 1."""
+    if T.shape != (4, 4) or not np.isfinite(T).all():
+        return False
+    R = T[:3, :3]
+    return (abs(float(np.linalg.det(R)) - 1.0) < tol
+            and float(np.linalg.norm(R @ R.T - np.eye(3))) < tol)
+
+
+class SystemStatus(enum.Enum):
+    INITIALIZATION = "INITIALIZATION"
+    WORKING = "WORKING"
+    TERMINATE = "TERMINATE"
+
+
+class EsvoSystem:
+    """Host-side orchestrator of the mapping programs and the tracker."""
+
+    def __init__(self, rig: StereoRig, config: SystemConfig | None = None,
+                 pose_table_size: int = 1024, seed: int = 0,
+                 emit_debug_maps: bool = False, mesh=None, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "EsvoSystem(mesh=...): the event-axis sharding over a "
+                "device mesh is not ported yet")
+        self.cfg = config or SystemConfig()
+        self._rig = rig
+        self.cycle = MappingCycle(rig, self.cfg, device=device)
+        self.device = self.cycle.device
+        self.H, self.W = self.cycle.H, self.cycle.W
+        self.dtype = self.cycle.dtype
+        self.status = SystemStatus.INITIALIZATION
+        self.emit_debug_maps = emit_debug_maps
+        self.pose_table_size = pose_table_size
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+        self._pending_mapping = None
+        self.reset()
+
+    @property
+    def N(self) -> int:
+        return self.cycle.N
+
+    @property
+    def F(self) -> int:
+        return self.cycle.F
+
+    @property
+    def rig(self) -> StereoRig:
+        return self.cycle.rig
+
+    @property
+    def history(self) -> dr.DepthEstimates:
+        return self.cycle.history
+
+    @history.setter
+    def history(self, value: dr.DepthEstimates) -> None:
+        self.cycle.history = value
+
+    def reconfigure(self, config: SystemConfig, reset: bool = True):
+        """Runtime parameter update (the reference's dynamic_reconfigure,
+        whose change callback resets the system). Rebuilds the
+        MappingCycle; ``reset=False`` keeps the live state when the event
+        budget and the fusion window keep their shapes."""
+        old = self.cycle
+        self.cfg = config
+        self.cycle = MappingCycle(self._rig, config, device=self.device)
+        if reset or self.N != old.N or self.F != old.F:
+            self.reset()
+        else:
+            self.cycle.history, self.cycle.hist_slot = (old.history,
+                                                        old.hist_slot)
+
+    # -- state -----------------------------------------------------------------
+    def reset(self):
+        """Full state reset."""
+        H, W, dev = self.H, self.W, self.device
+        self.ts_state_left = tsf.init_state(H, W, dev)
+        self.ts_state_right = tsf.init_state(H, W, dev)
+        self.grid = fu.empty_grid(H, W, self.dtype, dev)
+        self.T_world_frame = np.eye(4)
+        self.cycle.reset()
+        self._frames_filled = 0
+        self.pose_times = [0.0]
+        self.pose_list = [np.eye(4)]
+        self.T_world_cur = np.eye(4)
+        self.traj_times: list[float] = []
+        self.traj_poses: list[np.ndarray] = []
+        self.status = SystemStatus.INITIALIZATION
+        self.last_tick_time: float | None = None
+        self.last_mapping_time: float | None = None
+        self.events_since_last_obs = 0
+        self.stats = {"fusions": 0, "dropped": 0, "map_points": 0,
+                      "low_event_ticks": 0, "pose_miss_skips": 0,
+                      "tracking_rejects": 0, "bm": {}}
+        self._consec_rejects = 0
+        self._ref_maps: list[tuple] = []   # (pts, ok, n_points)
+        self._map_pts = None
+        self._map_ok = None
+        self._global_voxels: dict = {}
+        self._pending_mapping = None
+        self.reset_count = getattr(self, "reset_count", 0) + 1
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                               device=self.device)
+
+    def apply_world_correction(self, corr: np.ndarray) -> None:
+        """Left-multiply every world-frame quantity of the live state by
+        the 4x4 `corr`: poses, ref maps, the window's per-point poses,
+        the pending map and the global cloud. Frame-local state (the
+        grid's p_cam, the surfaces) is untouched."""
+        corr = np.asarray(corr, np.float64)
+        R, tr = corr[:3, :3], corr[:3, 3]
+        self.T_world_cur = corr @ self.T_world_cur
+        self.T_world_frame = corr @ self.T_world_frame
+        self.pose_list = [corr @ T for T in self.pose_list]
+        self.traj_poses = [corr @ T for T in self.traj_poses]
+        cj = self._tensor(corr)
+        move_pts = lambda pts: transform_points(cj, pts)
+
+        self._ref_maps = [(move_pts(p), ok, n)
+                          for (p, ok, n) in self._ref_maps]
+        if self._map_pts is not None:
+            self._map_pts = move_pts(self._map_pts)
+        self.history = self.history.replace(T_world_cam=torch.einsum(
+            "ij,fnjk->fnik", cj, self.history.T_world_cam))
+        if self._pending_mapping is not None:
+            self._pending_mapping["pts"] = move_pts(
+                self._pending_mapping["pts"])
+        if self._global_voxels:
+            pts = np.stack(list(self._global_voxels.values())) @ R.T + tr
+            self._global_voxels = dict(zip(self._global_voxels.keys(), pts))
+
+    # -- tracking --------------------------------------------------------------
+    def select_ref_points(self, pts_world: torch.Tensor,
+                          pt_valid: torch.Tensor):
+        """Stochastic selection of <= M registration points from a map
+        export (valid points first, in random order). Returns (pts (M, 3),
+        ok (M,))."""
+        M = self.cfg.tracker.max_registration_points
+        flat_pts = pts_world.reshape(-1, 3)
+        flat_ok = pt_valid.reshape(-1)
+        score = torch.rand(flat_ok.shape, generator=self._gen,
+                           device=self.device) \
+            + torch.where(flat_ok, 0.0, 1e3)
+        idx = torch.argsort(score, stable=True)[:M]
+        return flat_pts[idx], flat_ok[idx]
+
+    def track(self, ts_l: torch.Tensor, T_world_ref: torch.Tensor,
+              T_world_cur: torch.Tensor, pts: torch.Tensor, ok: torch.Tensor):
+        """Register selected world points to the left surface ts_l from
+        the guess T_world_cur. Returns (T_est (4, 4), rms
+        (max_iteration,))."""
+        prob = reg.make_problem(T_world_ref.to(self.dtype),
+                                T_world_cur.to(self.dtype), pts, ok, ts_l,
+                                self.cfg.tracker)
+        _, T_est, rms = reg.solve(prob, self.cycle.camera("left"),
+                                  self.cfg.tracker)
+        return T_est, rms
+
+    def _track_tick_body(self, st_l, st_r, evl, evr, ts, T_world_ref,
+                         T_ref_world, p_ref, ok, T_cur):
+        """One sync tick of a tracked roll: insert events, render the left
+        surface, register the (pre-selected, ref-frame) map points to it.
+        Returns (st_l, st_r, s_l, T_est, rms)."""
+        st_l = tsf.insert_events(st_l, evl)
+        st_r = tsf.insert_events(st_r, evr)
+        s_l = self.cycle.render_left(st_l, ts).to(self.dtype)
+        T_ref_left = torch.matmul(T_ref_world, T_cur.to(self.dtype))
+        neg, gu, gv = reg.negative_time_surface(
+            s_l, self.cfg.tracker.kernel_size)
+        prob = reg.RegProblem(
+            R=T_ref_left[:3, :3], t=T_ref_left[:3, 3],
+            T_world_ref=T_world_ref, points=p_ref, point_valid=ok,
+            ts_negative=neg, grad_u=gu, grad_v=gv)
+        _, T_est, rms = reg.solve(prob, self.cycle.camera("left"),
+                                  self.cfg.tracker)
+        return st_l, st_r, s_l, T_est, rms
+
+    # -- helpers ---------------------------------------------------------------
+    def _event_batch(self, ev: dict) -> tsf.EventBatch:
+        return tsf.EventBatch.from_arrays(ev["x"], ev["y"], ev["t"], ev["p"],
+                                          ev["valid"], device=self.device)
+
+    def _pose_table(self):
+        """Fixed-size (pose_table_size,) stamped-pose table: the newest
+        poses, padded by repeating the last one at strictly increasing
+        times (queries past the end clamp to the latest pose)."""
+        S = self.pose_table_size
+        times = np.asarray(self.pose_times[-S:], np.float64)
+        poses = np.asarray(self.pose_list[-S:])
+        n = len(times)
+        if n < S:
+            times = np.concatenate([times,
+                                    times[-1] + 1e-5 * np.arange(1, S - n + 1)])
+            poses = np.concatenate(
+                [poses, np.repeat(poses[-1:], S - n, axis=0)])
+        return self._tensor(times), self._tensor(poses)
+
+    def record_pose(self, t: float, T_world_cam: np.ndarray):
+        """Feed a pose into the pose table (ground truth in MVStereo mode,
+        the tracker's in the closed loop). A non-finite or non-rigid pose
+        is rejected (the previous one kept, counted); so is a rigid one
+        that implies motion above the tracking section's speed bounds,
+        until max_consecutive_rejects rejections in a row re-anchor the
+        guard to the incoming pose."""
+        T = np.asarray(T_world_cam)
+        if not _pose_is_rigid(T):
+            self.stats["tracking_rejects"] += 1
+            return
+        if self.pose_times:
+            tc = self.cfg.tracking
+            dt_s = max(float(t) - self.pose_times[-1],
+                       1.0 / tc.tracking_rate_hz)
+            dist = float(np.linalg.norm(T[:3, 3] - self.T_world_cur[:3, 3]))
+            dR = self.T_world_cur[:3, :3].T @ T[:3, :3]
+            ang = float(np.arccos(np.clip((np.trace(dR) - 1.0) / 2.0,
+                                          -1.0, 1.0)))
+            if (dist > tc.max_speed_mps * dt_s + 0.01
+                    or ang > tc.max_ang_speed_rps * dt_s + 0.02):
+                self.stats["tracking_rejects"] += 1
+                self._consec_rejects += 1
+                if self._consec_rejects < tc.max_consecutive_rejects:
+                    return
+                warnings.warn(
+                    f"velocity guard re-anchoring after "
+                    f"{self._consec_rejects} consecutive rejections "
+                    f"(sustained motion above {tc.max_speed_mps} m/s?)")
+        self._consec_rejects = 0
+        self.pose_times.append(float(t))
+        self.pose_list.append(T)
+        self.T_world_cur = T
+
+    def _push_history(self, est: dr.DepthEstimates):
+        self.cycle.push_history(est)
+        self._frames_filled = min(self._frames_filled + 1, self.F)
+
+    def _push_ref_map(self, pts, ok, n_points: int):
+        """Append a map export to the REF_HISTORY ring."""
+        self._ref_maps.append((pts, ok, n_points))
+        R = self.cfg.tracking.ref_history_length
+        if len(self._ref_maps) > R:
+            self._ref_maps = self._ref_maps[-R:]
+
+    def _current_ref_map(self):
+        """Newest ring map with enough points for registration, or None:
+        a collapsed newest cycle falls back to an older map."""
+        need = self.cfg.tracker.batch_size
+        for pts, ok, n in reversed(self._ref_maps):
+            if n >= need:
+                return pts, ok, n
+        return None
+
+    def _accumulate_global_map(self, pts_world, occ, leaf: float = 0.01):
+        """Voxel-downsampled global cloud: one point per occupied voxel,
+        newest wins (host side)."""
+        p = pts_world.detach().cpu().numpy().reshape(-1, 3)
+        p = p[occ.detach().cpu().numpy().reshape(-1)]
+        if len(p) == 0:
+            return
+        keys = np.floor(p / leaf).astype(np.int64)
+        k = ((keys[:, 0] + (1 << 20)) << 42) \
+            + ((keys[:, 1] + (1 << 20)) << 21) + (keys[:, 2] + (1 << 20))
+        self._global_voxels.update(zip(k.tolist(), p))
+
+    def global_map(self) -> np.ndarray:
+        """(M, 3) accumulated voxel-downsampled world point cloud."""
+        if not self._global_voxels:
+            return np.zeros((0, 3))
+        return np.stack(list(self._global_voxels.values()))
+
+    # -- pipeline stages -------------------------------------------------------
+    def process_tick(self, t_sync: float, ev_left: dict, ev_right: dict,
+                     gt_pose: np.ndarray | None = None,
+                     do_mapping: bool | None = None):
+        """One sync tick. ev_*: dicts from io.events.frame_events for one
+        frame (arrays shaped (cap,)). gt_pose: if given, MVStereo mode
+        (known poses; tracking bypassed). do_mapping: force a mapping
+        cycle on / off; None schedules it from mapping_rate_hz. Returns a
+        dict of per-tick outputs."""
+        # timestamp-inconsistency watchdog
+        if self.last_tick_time is not None:
+            dt = t_sync - self.last_tick_time
+            if dt < 0 or dt >= 0.5:
+                self.reset()
+        self.last_tick_time = t_sync
+        if do_mapping is None:
+            period = 1.0 / self.cfg.mapping.mapping_rate_hz
+            do_mapping = (self.last_mapping_time is None
+                          or t_sync - self.last_mapping_time
+                          >= period - 1e-9)
+
+        out = {"t": t_sync, "status": self.status.value}
+        # a cycle parked by a roll is published before this tick uses it
+        fin = self._finalize_pending_mapping()
+        if fin:
+            out.update(fin)
+        self.ts_state_left, self.ts_state_right, ts_l, ts_r = \
+            self.cycle.render_tick(self.ts_state_left, self.ts_state_right,
+                                   self._event_batch(ev_left),
+                                   self._event_batch(ev_right), t_sync)
+        ts_l = ts_l.to(self.dtype)
+        ts_r = ts_r.to(self.dtype)
+        out["ts_left"] = ts_l
+        out["ts_right"] = ts_r
+        self.events_since_last_obs = int(np.sum(ev_left["valid"]))
+        if self.events_since_last_obs < self.cfg.tracker.min_num_events:
+            self.stats["low_event_ticks"] += 1
+            out["low_events"] = True
+
+        ref = self._current_ref_map()
+        if gt_pose is not None:
+            self.record_pose(t_sync, gt_pose)
+        elif self.status == SystemStatus.WORKING and ref is not None:
+            pts, ok = self.select_ref_points(ref[0], ref[1])
+            T_est, rms = self.track(ts_l, self._tensor(self.T_world_frame),
+                                    self._tensor(self.T_world_cur), pts, ok)
+            # one transfer: the pose, the per-round rms, the points used
+            host = torch.cat([T_est.reshape(-1), rms,
+                              torch.sum(ok).to(rms.dtype)[None]]).cpu()
+            host = host.double().numpy()
+            self.record_pose(t_sync, host[:16].reshape(4, 4))
+            out["tracking_rms"] = host[16:-1]
+            out["lm_stats"] = {"n_points": int(host[-1]),
+                               "n_iter": self.cfg.tracker.max_iteration,
+                               "rms": float(host[-2])}
+
+        self.traj_times.append(t_sync)
+        self.traj_poses.append(self.T_world_cur.copy())
+        if not do_mapping:
+            return out
+
+        T_wf = self.T_world_cur.copy()
+        if self.status == SystemStatus.INITIALIZATION:
+            self._sgm_bootstrap(t_sync, ts_l, ts_r, ev_left, T_wf, out)
+        elif self._dispatch_mapping(t_sync, ts_l, ts_r, ev_left, T_wf,
+                                    gt_mode=gt_pose is not None, out=out):
+            fin = self._finalize_pending_mapping()
+            if fin:
+                out.update(fin)
+        out["map_points"] = self.stats["map_points"]
+        if self.emit_debug_maps:
+            out["maps"] = self.render_debug_maps()
+        return out
+
+    def _sgm_bootstrap(self, t_sync, ts_l, ts_r, ev_left, T_wf, out):
+        """SGM bootstrap cycle, synchronous: its point count decides the
+        state machine."""
+        dev = self.device
+        est, n = self.cycle.sgm_estimate(
+            ts_l, ts_r, torch.as_tensor(ev_left["x"], device=dev),
+            torch.as_tensor(ev_left["y"], device=dev),
+            torch.as_tensor(ev_left["valid"], device=dev),
+            self._tensor(T_wf))
+        n = int(n)
+        out["sgm_points"] = n
+        if n >= self.cfg.mapping.init_sgm_num_threshold:
+            self._push_history(est)
+            self.T_world_frame = T_wf
+            self.grid, self._map_pts, self._map_ok = self.cycle.seed_frame(
+                self.history, self._tensor(T_wf))
+            self.stats["map_points"] = int(torch.sum(self._map_ok))
+            self._push_ref_map(self._map_pts, self._map_ok,
+                               self.stats["map_points"])
+            self.status = SystemStatus.WORKING
+            self.last_mapping_time = t_sync
+
+    def _dispatch_mapping(self, t_sync, ts_l, ts_r, ev_left, T_wf,
+                          gt_mode: bool, out: dict) -> bool:
+        """Queue one WORKING mapping cycle on the device without waiting
+        for it: its handles are parked in `_pending_mapping` for
+        `_finalize_pending_mapping`. Returns False when the pose table no
+        longer covers the frame's oldest event (the cycle is skipped)."""
+        ev_t = np.asarray(ev_left["t"])
+        ev_ok = np.asarray(ev_left["valid"])
+        if ev_ok.any() and len(self.pose_times) > 1:
+            oldest_needed = float(ev_t[ev_ok].min())
+            oldest_avail = self.pose_times[
+                max(len(self.pose_times) - self.pose_table_size, 0)]
+            if oldest_needed < oldest_avail - 1e-9:
+                self.stats["pose_miss_skips"] += 1
+                out["pose_miss_skip"] = True
+                return False
+        dev = self.device
+        pt_t, pt_T = self._pose_table()
+        T_wf_dev = self._tensor(T_wf)
+        est, n, bm_stats = self.cycle.mapping_estimate(
+            ts_l, ts_r, torch.as_tensor(ev_left["x"], device=dev),
+            torch.as_tensor(ev_left["y"], device=dev), self._tensor(ev_t),
+            torch.as_tensor(ev_ok, device=dev), pt_t, pt_T, T_wf_dev)
+        self._push_history(est)
+        self.T_world_frame = T_wf
+        self.grid, self._map_pts, self._map_ok, nf, nd = \
+            self.cycle.rebuild_frame(self.history, T_wf_dev)
+        self.last_mapping_time = t_sync
+        self._pending_mapping = {
+            "n": n, "bm_stats": bm_stats, "nf": nf, "nd": nd,
+            "pts": self._map_pts, "ok": self._map_ok, "gt_mode": gt_mode}
+        return True
+
+    def _finalize_pending_mapping(self) -> dict | None:
+        """Bring the parked cycle's counters to the host, publish its map
+        to the REF_HISTORY ring and run the degrade check."""
+        p = self._pending_mapping
+        if p is None:
+            return None
+        self._pending_mapping = None
+        out = {"map_estimates": int(p["n"])}
+        bm_stats = {k: int(v) for k, v in p["bm_stats"].items()}
+        out["bm_stats"] = bm_stats
+        self.stats["bm"] = {k: self.stats["bm"].get(k, 0) + v
+                            for k, v in bm_stats.items()}
+        self.stats["fusions"] += int(p["nf"])
+        self.stats["dropped"] += int(p["nd"])
+        self.stats["map_points"] = int(torch.sum(p["ok"]))
+        self._push_ref_map(p["pts"], p["ok"], self.stats["map_points"])
+        self._accumulate_global_map(p["pts"], p["ok"])
+        # degrade only when no ring map can support registration
+        if not p["gt_mode"] and self._current_ref_map() is None:
+            self._degrade()
+        out["map_points"] = self.stats["map_points"]
+        return out
+
+    def _degrade(self):
+        """Drop to INITIALIZATION and invalidate the fusion window: its
+        frames were built under untrusted poses, and the next bootstrap's
+        seed_frame reads every slot."""
+        self.status = SystemStatus.INITIALIZATION
+        self._frames_filled = 0
+        self.cycle.hist_slot = 0
+        self.history = self.history.replace(
+            valid=torch.zeros_like(self.history.valid))
+
+    def process_ticks(self, t_syncs, ev_left: dict, ev_right: dict,
+                      gt_poses=None, do_mapping: bool | None = None):
+        """K consecutive sync ticks as one roll: K inserts and (while
+        WORKING) K chained tracking solves against the previous cycle's
+        map, then a scheduled mapping cycle on the last tick, whose
+        hand-off is consumed at the start of the next call (or by
+        flush()).
+
+        t_syncs: (K,) tick times; ev_left / ev_right: dicts of (K, cap)
+        framed event arrays; gt_poses: optional (K, 4, 4) (MVStereo
+        mode). Returns a dict: final surfaces, (K, 4, 4) poses, tracking
+        rms, plus the previous roll's finalized mapping stats."""
+        t_syncs = np.asarray(t_syncs, float)
+        K = len(t_syncs)
+        prev = ([self.last_tick_time] if self.last_tick_time is not None
+                else [])
+        dts = np.diff(np.concatenate([prev, t_syncs]))
+        if len(dts) and ((dts < 0).any() or (dts >= 0.5).any()):
+            # the watchdog fires on a tick: run the ticks one by one so the
+            # reset lands on it; a forced cycle stays on the final tick
+            per_tick = [
+                self.process_tick(
+                    float(t), {k: v[i] for k, v in ev_left.items()},
+                    {k: v[i] for k, v in ev_right.items()},
+                    gt_pose=None if gt_poses is None else gt_poses[i],
+                    do_mapping=(do_mapping if i == K - 1
+                                else (None if do_mapping is None
+                                      else False)))
+                for i, t in enumerate(t_syncs)]
+            out = dict(per_tick[-1])
+            out["per_tick"] = per_tick
+            out["status"] = self.status.value
+            return out
+
+        out = {"t": float(t_syncs[-1]), "status": self.status.value}
+        fin = self._finalize_pending_mapping()
+        if fin:
+            out.update(fin)
+        if do_mapping is None:
+            period = 1.0 / self.cfg.mapping.mapping_rate_hz
+            do_mapping = (self.last_mapping_time is None
+                          or t_syncs[-1] - self.last_mapping_time
+                          >= period - 1e-9)
+
+        evb_l = self._event_batch(ev_left)
+        evb_r = self._event_batch(ev_right)
+        t_dev = torch.as_tensor(t_syncs, dtype=torch.float32,
+                                device=self.device)
+        tick = lambda b, k: tsf.EventBatch(x=b.x[k], y=b.y[k], t=b.t[k],
+                                           p=b.p[k], valid=b.valid[k])
+        ref = self._current_ref_map()
+        n_valid = np.sum(np.asarray(ev_left["valid"]), axis=1)
+        self.stats["low_event_ticks"] += int(
+            (n_valid < self.cfg.tracker.min_num_events).sum())
+        self.events_since_last_obs = int(n_valid[-1])
+
+        st_l, st_r = self.ts_state_left, self.ts_state_right
+        if gt_poses is None and self.status == SystemStatus.WORKING \
+                and ref is not None:
+            # the map is fixed across the roll: select once, move the
+            # points to the ref frame once
+            T_world_ref = self._tensor(self.T_world_frame)
+            pts, ok = self.select_ref_points(ref[0], ref[1])
+            p_ref = torch.einsum("ji,nj->ni", T_world_ref[:3, :3],
+                                 pts - T_world_ref[:3, 3])
+            T_ref_world = se3_inverse(T_world_ref)
+            T_cur = self._tensor(self.T_world_cur)
+            poses, rms_last = [], []
+            for k in range(K):
+                st_l, st_r, _, T_cur, rms = self._track_tick_body(
+                    st_l, st_r, tick(evb_l, k), tick(evb_r, k), t_dev[k],
+                    T_world_ref, T_ref_world, p_ref, ok, T_cur)
+                poses.append(T_cur)
+                rms_last.append(rms[-1])
+            s_l, s_r = self.cycle.render_pair(st_l, st_r, t_dev[-1])
+            rms = torch.stack(rms_last)
+            host = torch.cat([torch.stack(poses).reshape(-1), rms,
+                              torch.sum(ok).to(rms.dtype)[None]]).cpu()
+            host = host.double().numpy()
+            poses_np = host[:16 * K].reshape(K, 4, 4)
+            for i, t in enumerate(t_syncs):
+                self.record_pose(float(t), poses_np[i])
+                self.traj_times.append(float(t))
+                # the guarded pose: a rejected step repeats the last one
+                self.traj_poses.append(self.T_world_cur.copy())
+            out["tracking_rms"] = host[16 * K:-1]
+            out["lm_stats"] = {"n_points": int(host[-1]),
+                               "n_iter": self.cfg.tracker.max_iteration,
+                               "rms": float(host[-2])}
+            out["poses"] = poses_np
+        else:
+            for k in range(K):
+                st_l = tsf.insert_events(st_l, tick(evb_l, k))
+                st_r = tsf.insert_events(st_r, tick(evb_r, k))
+            s_l, s_r = self.cycle.render_pair(st_l, st_r, t_dev[-1])
+            for i, t in enumerate(t_syncs):
+                if gt_poses is not None:
+                    self.record_pose(float(t), np.asarray(gt_poses[i]))
+                self.traj_times.append(float(t))
+                self.traj_poses.append(self.T_world_cur.copy())
+        self.ts_state_left, self.ts_state_right = st_l, st_r
+        s_l, s_r = s_l.to(self.dtype), s_r.to(self.dtype)
+        self.last_tick_time = float(t_syncs[-1])
+        out["ts_left"] = s_l
+        out["ts_right"] = s_r
+
+        if do_mapping:
+            ev_last = {k: np.asarray(v)[-1] for k, v in ev_left.items()}
+            T_wf = self.T_world_cur.copy()
+            if self.status == SystemStatus.INITIALIZATION:
+                self._sgm_bootstrap(float(t_syncs[-1]), s_l, s_r, ev_last,
+                                    T_wf, out)
+            else:
+                self._dispatch_mapping(float(t_syncs[-1]), s_l, s_r,
+                                       ev_last, T_wf,
+                                       gt_mode=gt_poses is not None,
+                                       out=out)
+            if self.emit_debug_maps:
+                out["maps"] = self.render_debug_maps()
+        out["map_points"] = self.stats["map_points"]
+        return out
+
+    def flush(self):
+        """Finalize a pending mapping cycle (call once after the last
+        process_ticks of a run)."""
+        return self._finalize_pending_mapping()
+
+    # -- outputs ---------------------------------------------------------------
+    def trajectory(self):
+        return np.asarray(self.traj_times), np.asarray(self.traj_poses)
+
+    def save_trajectory(self, path: str):
+        """TUM export."""
+        from esvo_tpu_torch.eval.trajectory import save_tum
+        save_tum(path, *self.trajectory())
+
+    def depth_map(self):
+        """(inv_depth (H, W), valid (H, W)) of the current frame, numpy."""
+        return (self.grid.inv_depth.cpu().numpy(),
+                self.grid.occupied.cpu().numpy())
+
+    def save_depth_map(self, save_dir: str, t: float | None = None) -> str:
+        """Per-cycle depth-map txt dump: one ``x y z`` line per valid
+        point (sub-pixel rectified coordinate, depth in the frame's
+        camera), in a file named by the timestamp in nanoseconds. Returns
+        the path."""
+        os.makedirs(save_dir, exist_ok=True)
+        if t is None:
+            t = self.last_tick_time or 0.0
+        path = os.path.join(save_dir, f"{int(round(t * 1e9))}.txt")
+        occ = self.grid.occupied.cpu().numpy()
+        x = self.grid.x.cpu().numpy()[occ]
+        z = self.grid.p_cam.cpu().numpy()[occ][:, 2]
+        np.savetxt(path, np.column_stack([x, z]), fmt="%.9g")
+        return path
+
+    def render_debug_maps(self) -> dict:
+        """Per-cycle debug images: inverse depth, std, age and cost
+        false-colour maps, and the tracker's reprojection overlay, as
+        (H, W, 3) uint8 arrays."""
+        from esvo_tpu_torch.utils import visualization as vis
+        m = self.cfg.mapping
+        g = {k: getattr(self.grid, k).cpu().numpy()
+             for k in ("inv_depth", "variance", "age", "residual")}
+        occ = self.grid.occupied.cpu().numpy()
+        maps = {
+            "inv_depth": vis.plot_inv_depth_map(
+                g["inv_depth"], occ, m.inv_depth_min_range,
+                m.inv_depth_max_range),
+            "std_var": vis.plot_std_var_map(g["variance"], occ,
+                                            m.std_var_vis_threshold),
+            "age": vis.plot_age_map(g["age"], occ, m.age_max_range),
+            "cost": vis.plot_cost_map(g["residual"], occ,
+                                      self.cfg.cost_vis_threshold),
+        }
+        ref = self._current_ref_map()
+        if ref is not None:
+            maps["reprojection"] = vis.plot_reprojection_map(
+                ref[0].cpu().numpy().reshape(-1, 3),
+                ref[1].cpu().numpy().reshape(-1),
+                np.linalg.inv(self.T_world_cur),
+                self.cycle.left_P.cpu().numpy(), self.H, self.W)
+        return maps

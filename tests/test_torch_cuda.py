@@ -7,6 +7,11 @@ launch) at the rpg, DSEC and DAVIS346 shapes, K1 at window shapes where a
 lane owns more or less than one column and at edge window counts, K3 on
 a shape whose pixel count is no multiple of 4.
 
+The closed loop: one tracking solve and one tracked process_ticks roll
+after the SGM bootstrap, card against the CPU port on the same inputs
+(the same surface and the same selected points), at the tolerance of
+the CPU parity tests (1e-4 m, 1e-4 rad).
+
 Run on a machine with an NVIDIA GPU:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (``tests/conftest.py`` imports JAX, which such a machine need not have).
@@ -17,6 +22,7 @@ tests/test_torch_lm.py on at least 98% of the events.
 import ctypes
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -53,7 +59,7 @@ def test_patches_kernel(smoke, rig):
 
 @pytest.mark.parametrize("ls_norm", ["Tdist", "l2"])
 def test_lm_kernel(smoke, rig, ls_norm):
-    cfg = smoke.MappingCycleConfig.from_dict(
+    cfg = smoke.SystemConfig.from_dict(
         dict(smoke.RPG, depth=dict(smoke.RPG["depth"], ls_norm=ls_norm)))
     res = smoke.check_lm(rig, cfg, 1000, 8, iters=2)
     assert res["evaluations"] >= 1000
@@ -78,7 +84,7 @@ def dsec_rig(smoke):
 
 
 def _cfg(smoke, preset, **depth):
-    return smoke.MappingCycleConfig.from_dict(
+    return smoke.SystemConfig.from_dict(
         dict(preset, depth=dict(preset["depth"], **depth)))
 
 
@@ -367,7 +373,7 @@ def test_remap_rejects_a_misaligned_map(smoke):
 
 def test_render_tick_is_one_remap_launch(smoke, rig):
     """A backward render tick rectifies both surfaces in one K3 launch."""
-    cfg = smoke.MappingCycleConfig.from_dict(smoke.RPG)
+    cfg = smoke.SystemConfig.from_dict(smoke.RPG)
     cycle = smoke.MappingCycle(rig, cfg, device="cuda")
     st = [smoke.tsf.init_state(cycle.H, cycle.W, "cuda") for _ in range(2)]
     ev = smoke.tsf.EventBatch.from_arrays([3, 4], [5, 6], [0.001, 0.002],
@@ -379,3 +385,53 @@ def test_render_tick_is_one_remap_launch(smoke, rig):
     for s, surf, cam in zip(out[:2], out[2:], cams):
         assert torch.equal(surf, smoke.tsf.render_backward(s, torch.tensor(
             0.01, device="cuda"), cam, cfg.surface))
+
+
+# --- the closed loop ---------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def booted(smoke, rig):
+    """An rpg EsvoSystem on the card and one through the CPU port, each
+    after the same first roll (the SGM bootstrap)."""
+    from esvo_tpu_torch import convert
+    cfg = smoke.SystemConfig.from_dict(smoke.RPG)
+    cpu_rig = convert.rig_from_numpy(convert.rig_to_numpy(rig), device="cpu")
+    scene, ticks, frames = smoke.make_stream("rpg", rig, n_ticks=12)
+    systems = {"cuda": smoke.EsvoSystem(rig, cfg, device="cuda"),
+               "cpu": smoke.EsvoSystem(cpu_rig, cfg, device="cpu")}
+    outs = {dev: s.process_ticks(*smoke._roll_inputs(frames, ticks, 0))
+            for dev, s in systems.items()}
+    return systems, outs, (ticks, frames), cfg, cpu_rig
+
+
+def test_closed_loop_roll_card_vs_cpu(smoke, booted):
+    systems, outs, (ticks, frames), _, _ = booted
+    card, cpu = systems["cuda"], systems["cpu"]
+    n_card, n_cpu = outs["cuda"]["sgm_points"], outs["cpu"]["sgm_points"]
+    assert abs(n_card - n_cpu) <= 0.01 * n_cpu and n_cpu >= 500
+    assert card.status.value == cpu.status.value == "WORKING"
+    chosen = {}
+    pick = card.select_ref_points
+
+    def spy(pts, ok):
+        chosen["sel"] = pick(pts, ok)
+        return chosen["sel"]
+
+    card.select_ref_points = spy
+    cpu.select_ref_points = lambda pts, ok: tuple(a.cpu()
+                                                  for a in chosen["sel"])
+    before = smoke.remap.KERNEL.launches
+    roll = smoke._roll_inputs(frames, ticks, smoke.ROLL)
+    out_card = card.process_ticks(*roll, do_mapping=False)
+    out_cpu = cpu.process_ticks(*roll, do_mapping=False)
+    # one K3 launch a tracked tick, one pair launch for the roll's end
+    assert smoke.remap.KERNEL.launches == before + smoke.ROLL + 1
+    for a, b in zip(out_card["poses"], out_cpu["poses"]):
+        assert np.linalg.norm(a[:3, 3] - b[:3, 3]) < 1e-4
+        assert smoke.pose_angle(a[:3, :3], b[:3, :3]) < 1e-4
+
+
+def test_tracking_solve_card_vs_cpu(smoke, booted):
+    systems, _, _, cfg, cpu_rig = booted
+    res = smoke.check_tracking_solve(systems["cuda"], cpu_rig, cfg)
+    assert res["points"] >= 300

@@ -19,6 +19,12 @@ FORBIDDEN = re.compile(r"\b(import|from)\s+(jax|flax)\b|\besvo_tpu\."
 def test_import_loads_no_jax():
     code = ("import sys, esvo_tpu_torch\n"
             "import esvo_tpu_torch.runtime.system, esvo_tpu_torch.convert\n"
+            "import esvo_tpu_torch.tracking.registration\n"
+            "import esvo_tpu_torch.runtime.checkpoint\n"
+            "import esvo_tpu_torch.eval.trajectory\n"
+            "import esvo_tpu_torch.mapping.initialization\n"
+            "import esvo_tpu_torch.utils.visualization\n"
+            "import esvo_tpu_torch.ops.linalg\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'flax')) or m == 'esvo_tpu' "
             "or m.startswith('esvo_tpu.'))\n"

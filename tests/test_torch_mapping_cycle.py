@@ -33,7 +33,8 @@ from esvo_tpu_torch.io import synthetic as tsyn
 from esvo_tpu_torch.io.events import frame_events
 from esvo_tpu_torch.mapping.block_matching import BlockMatchConfig
 from esvo_tpu_torch.mapping.depth_refinement import DepthProblemConfig
-from esvo_tpu_torch.runtime.config import MappingConfig, MappingCycleConfig
+from esvo_tpu_torch.runtime.config import (MappingConfig,
+                                           SystemConfig as TSystemConfig)
 from esvo_tpu_torch.runtime.system import MappingCycle
 from esvo_tpu_torch.surface import time_surface as tts
 from test_torch_fusion import _assert_grids
@@ -58,9 +59,9 @@ def _configs():
     jc = SystemConfig(depth=JDP(lm_kernel="pallas", **depth),
                       bm=JBM(zncc_threshold=0.25),
                       mapping=JMC(**mapping))
-    tc = MappingCycleConfig(depth=DepthProblemConfig(**depth),
-                            bm=BlockMatchConfig(zncc_threshold=0.25),
-                            mapping=MappingConfig(**mapping))
+    tc = TSystemConfig(depth=DepthProblemConfig(**depth),
+                       bm=BlockMatchConfig(zncc_threshold=0.25),
+                       mapping=MappingConfig(**mapping))
     return jc, tc
 
 
@@ -219,7 +220,7 @@ def test_cycle_pieces_and_state_converter(world):
     for strategy in ("CONST_POINTS", "CONST_FRAMES"):
         m = dict(process_event_num=700, max_fusion_points=5000,
                  max_fusion_frames=6, fusion_strategy=strategy)
-        assert MappingCycleConfig(mapping=MappingConfig(**m)).history_frames \
+        assert TSystemConfig(mapping=MappingConfig(**m)).history_frames \
             == jsys.EsvoSystem(rig, SystemConfig(mapping=JMC(**m))).F
 
     st_j = jts.insert_events(jts.init_state(H, W),
