@@ -22,7 +22,14 @@
    launches inside the loop, and a profiled tracked roll (launches per
    tick, idle share); one tracking solve and one SGM bootstrap held
    against the CPU port on the same inputs;
-6. the kernel table as one JSON line; the last line is the result.
+6. the resident loop (ResidentLoop: one CUDA graph a roll) on the same
+   scene and seed, framed by EventFrameStream: the host path bootstraps,
+   then dispatches of RESIDENT_R rolls; capture time, one graph-replayed
+   roll against the same roll run eagerly, ms a tick and ticks/s beside
+   the host path's, a profiled dispatch (idle share, kernels a roll,
+   K1-K3 launches inside the replays by kernel name), the ATE and the
+   largest per-tick pose difference from the host path;
+7. the kernel table as one JSON line; the last line is the result.
 
 Any failed check raises, and the script then exits non-zero. Without a
 CUDA device it exits non-zero before printing any result.
@@ -47,6 +54,7 @@ from esvo_tpu_torch.geometry.camera import (PinholeParams, StereoRig,
                                             make_camera)
 from esvo_tpu_torch.geometry.se3 import se3_exp, se3_inverse
 from esvo_tpu_torch.io.events import EventArray, frame_events
+from esvo_tpu_torch.io.stream import EventFrameStream
 from esvo_tpu_torch.eval.trajectory import ate_rmse
 from esvo_tpu_torch.io.synthetic import (SyntheticScene, interpolate_gt_pose,
                                          make_scene, simulate_stereo_events)
@@ -55,6 +63,7 @@ from esvo_tpu_torch.mapping import initialization as init
 from esvo_tpu_torch.mapping.regularization import regularize
 from esvo_tpu_torch.ops import _build, lm, patches, remap
 from esvo_tpu_torch.runtime.config import SystemConfig
+from esvo_tpu_torch.runtime.resident import ResidentLoop, unpack
 from esvo_tpu_torch.runtime.system import EsvoSystem, MappingCycle
 from esvo_tpu_torch.surface import time_surface as tsf
 
@@ -132,6 +141,7 @@ TICK = 0.01            # 100 Hz surfaces
 MAP_EVERY = 5          # 20 Hz mapping
 ROLL = 5               # ticks a process_ticks roll (bench.py's closed loop)
 LOOP_ROLLS = 18
+RESIDENT_R = 2         # rolls a resident dispatch (scripts/sim_campaign.py)
 # ATE bar of the rpg closed loop (m), calibrated on the CPU port on the
 # same stream by scripts/torch_closed_loop_ate.py (PERF.md): its 90 ticks
 # score 0.038-0.058 m over twelve point-selection seeds, a pose held at
@@ -241,8 +251,15 @@ def _to_raw(ev: EventArray, inv_map: np.ndarray, mask: np.ndarray):
 
 
 def make_stream(name: str, rig: StereoRig, n_ticks: int | None = None):
-    """Synthetic scene, raw event frames for both cameras, sync ticks
-    (SCENES' count unless n_ticks is given)."""
+    """Synthetic scene, sync ticks (SCENES' count unless n_ticks is
+    given), raw event frames for both cameras."""
+    scene, ticks, evs = make_events(name, rig, n_ticks)
+    return scene, ticks, [frame_events(e, ticks, SCENES[name]["cap"])
+                          for e in evs]
+
+
+def make_events(name: str, rig: StereoRig, n_ticks: int | None = None):
+    """Synthetic scene, sync ticks and both cameras' raw event streams."""
     s = SCENES[name]
     W, H = rig.left.width, rig.left.height
     rng = np.random.default_rng(s["seed"])
@@ -261,9 +278,7 @@ def make_stream(name: str, rig: StereoRig, n_ticks: int | None = None):
         pixel_threshold=s["threshold"], rng=rng)
     evs = [_to_raw(e, c.inv_map.cpu().numpy(), c.mask.cpu().numpy())
            for e, c in zip(evs, cams)]
-    ticks = np.arange(1, n_ticks + 1) * TICK
-    frames = [frame_events(e, ticks, s["cap"]) for e in evs]
-    return scene, ticks, frames
+    return scene, np.arange(1, n_ticks + 1) * TICK, evs
 
 
 # ---------------------------------------------------------------------------
@@ -559,26 +574,47 @@ def gt_rel_err(est: dr.DepthEstimates, points: np.ndarray,
 
 
 def _profiled(fn, again=None) -> dict:
-    """Wall time of fn unprofiled, then its device busy time, idle share
-    and heaviest kernels from a profiled repeat (of `again`, where fn
-    cannot run twice on the same inputs)."""
+    """Wall time of fn unprofiled, then the device busy time, wall time,
+    idle share and heaviest kernels of a profiled repeat (of `again`,
+    where fn cannot run twice on the same inputs). `idle_share` is the
+    profiled run's own, 1 - busy / its wall (which the profiler
+    stretches); `idle_share_unprofiled` takes the unprofiled run's wall
+    instead. Neither is clamped: a negative one says the profiler's busy
+    time exceeds that wall."""
     t0 = _sync("cuda")
     fn()
     wall = (_sync("cuda") - t0) * 1e3
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
+        t0 = _sync("cuda")
         (again or fn)()
-        torch.cuda.synchronize()
+        prof_wall = (_sync("cuda") - t0) * 1e3
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
     busy = _device_us(prof) / 1e3
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:4]
-    return dict(wall_ms=wall, device_busy_ms=busy,
-                idle_share=max(0.0, 1.0 - busy / wall),
+    return dict(wall_ms=wall, profiled_wall_ms=prof_wall,
+                device_busy_ms=busy, idle_share=1.0 - busy / prof_wall,
+                idle_share_unprofiled=1.0 - busy / wall,
                 device_launches=sum(e.count for e in dev),
+                kernel_launches=kernel_counts(dev),
                 top=[dict(kernel=e.key[:70],
                           ms=e.self_device_time_total / 1e3, n=e.count)
                      for e in top])
+
+
+# how the profiler names each hand-written kernel (the demangled symbols
+# of csrc/*.cu: remap_one_kernel / remap_kernel<PPT, NCAM>,
+# slice_patches_kernel<RPL, VEC>, lm_kernel<KPL, TDIST>)
+KERNEL_NAMES = {"remap": "remap_", "patches": "slice_patches_kernel<",
+                "lm": "lm_kernel<"}
+
+
+def kernel_counts(device_events) -> dict:
+    """Launches of K1-K3 among a profile's device events, by kernel name:
+    the only count that sees the kernels a CUDA graph replays."""
+    return {k: sum(e.count for e in device_events if pat in e.key)
+            for k, pat in KERNEL_NAMES.items()}
 
 
 def profile_cycle(cycle: MappingCycle, args) -> dict:
@@ -743,7 +779,7 @@ def run_closed_loop(rig: StereoRig, cfg: SystemConfig, scene, ticks, frames,
         raise AssertionError("closed loop: a non-finite pose")
     gt = np.stack([interpolate_gt_pose(scene, t) for t in t_est])
     static = np.repeat(np.eye(4)[None], len(t_est), axis=0)
-    return dict(system=system, rolls=rolls, boot=boot,
+    return dict(system=system, rolls=rolls, boot=boot, traj=(t_est, T_est),
                 ate=ate_rmse(t_est, T_est, t_est, gt, align=True),
                 static_ate=ate_rmse(t_est, static, t_est, gt, align=True),
                 ticks=len(t_est), stage_ms=stage_ms)
@@ -815,6 +851,156 @@ def check_sgm(boot, cfg: SystemConfig) -> dict:
                cpu_ms=cpu_ms)
     if min(res["best_disparity_agreement"], res["valid_agreement"]) < 0.995:
         raise AssertionError(f"SGM: card and CPU disagree: {res}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the resident loop
+# ---------------------------------------------------------------------------
+
+def stream_dispatches(evs, ticks, cap: int, R: int):
+    """Roll 0 (ROLL ticks, for the host path's bootstrap), then dispatches
+    of R whole rolls, each (t_syncs, left frames, right frames), framed
+    by EventFrameStream with its prefetch thread."""
+    streams = [EventFrameStream(e, ticks, cap) for e in evs]
+    rolls = ((t, fl, fr) for (t, fl), (_, fr) in
+             zip(*(s.rolls(ROLL) for s in streams)) if len(t) == ROLL)
+    yield next(rolls)
+    group = []
+    for roll in rolls:
+        group.append(roll)
+        if len(group) == R:
+            yield (np.concatenate([g[0] for g in group]),
+                   *({k: np.concatenate([g[i][k] for g in group])
+                      for k in group[0][i]} for i in (1, 2)))
+            group = []
+
+
+def check_graph_roll(loop: ResidentLoop, t_syncs, ev_l, ev_r) -> dict:
+    """One roll replayed by the graph against the same roll run eagerly
+    from a clone of the state, with the same scores (drawn from a
+    generator of their own, so the system's stream does not move); the
+    state is restored afterwards. Poses within 1e-4 m and 1e-4 rad, map
+    points and accept flags equal."""
+    snap = loop.state.map(torch.clone)
+    dev = loop.system.device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    scores = torch.rand(loop.system.H * loop.system.W, device=dev,
+                        generator=gen)
+    loop.stage(t_syncs, ev_l, ev_r, scores=scores)
+    graph = unpack(loop.step().cpu().numpy(), loop.K)
+    eager = unpack(loop.roll(snap.map(torch.clone), loop.inputs)[1].cpu()
+                   .numpy(), loop.K)
+    loop.state.copy_(snap)
+    pairs = list(zip(graph["poses"], eager["poses"]))
+    res = dict(check="resident roll: graph replay vs eager",
+               t_diff_m=max(float(np.linalg.norm(a[:3, 3] - b[:3, 3]))
+                            for a, b in pairs),
+               R_diff_rad=max(pose_angle(a[:3, :3], b[:3, :3])
+                              for a, b in pairs),
+               map_points=[int(graph["map_points"]),
+                           int(eager["map_points"])],
+               accepted=[graph["accepted"].tolist(),
+                         eager["accepted"].tolist()])
+    if not (res["t_diff_m"] < 1e-4 and res["R_diff_rad"] < 1e-4
+            and graph["map_points"] == eager["map_points"]
+            and (graph["accepted"] == eager["accepted"]).all()):
+        raise AssertionError(f"graph and eager rolls disagree: {res}")
+    return res
+
+
+def time_replay(loop: ResidentLoop, n: int = 3) -> list:
+    """Device span of one graph replay, by CUDA events, n times on the
+    staged inputs, each from the same state (restored after): the
+    profiler-free check on its busy time a roll."""
+    snap = loop.state.map(torch.clone)
+    spans = []
+    for _ in range(n):
+        loop.state.copy_(snap)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        loop.step()
+        e1.record()
+        e1.synchronize()
+        spans.append(e0.elapsed_time(e1))
+    loop.state.copy_(snap)
+    torch.cuda.synchronize()
+    return spans
+
+
+def run_resident(rig: StereoRig, cfg: SystemConfig, scene, ticks, evs,
+                 host_traj=None, device="cuda") -> dict:
+    """The resident loop on the rpg scene, seed 0: roll 0 bootstraps on
+    the host path, then ResidentLoop (ROLL ticks a roll, RESIDENT_R rolls
+    a dispatch) over every whole dispatch the scene holds: the first
+    (capture + replay), a graph-vs-eager check roll, the timed dispatches
+    (one synchronization at the end), one more for the wall time and the
+    last one profiled. Logs its lines and returns the summary."""
+    system = EsvoSystem(rig, cfg, device=device, seed=0)
+    batches = stream_dispatches(evs, ticks, SCENES["rpg"]["cap"], RESIDENT_R)
+    system.process_ticks(*next(batches))            # the SGM bootstrap
+    if system.status.value != "WORKING":
+        raise AssertionError("resident: the bootstrap roll left the system "
+                             f"in {system.status.value}")
+    batches = list(batches)
+    loop = ResidentLoop(system, ROLL, RESIDENT_R)
+    loop.start()
+    t0 = _sync(device)
+    loop.run(*batches[0])
+    first_ms = (_sync(device) - t0) * 1e3
+    log(dict(resident="rpg", card=card_line(), warmup_ms=loop.warmup_ms,
+             capture_ms=loop.capture_ms, first_dispatch_ms=first_ms))
+    first = batches[1]
+    check = check_graph_roll(loop, first[0][:ROLL],
+                             *({k: v[:ROLL] for k, v in ev.items()}
+                               for ev in first[1:]))
+    log(dict(check, card=card_line()))
+    timed = batches[1:-2]
+    t0 = _sync(device)
+    for b in timed:
+        loop.run(*b)
+    wall = _sync(device) - t0
+    n_ticks = len(timed) * RESIDENT_R * ROLL
+    prof = _profiled(lambda: loop.run(*batches[-2]),
+                     again=lambda: loop.run(*batches[-1]))
+    spans = time_replay(loop)
+    # the share of an unprofiled dispatch's wall outside its replays'
+    # device spans: a lower bound on its idle share, free of the profiler
+    prof.update(replay_event_ms=spans,
+                busy_per_roll_ms=prof["device_busy_ms"] / RESIDENT_R,
+                busy_exceeds_wall=prof["device_busy_ms"]
+                > prof["profiled_wall_ms"],
+                idle_share_outside_replays=1.0 - RESIDENT_R
+                * float(np.median(spans)) / prof["wall_ms"])
+    summary = loop.finish()
+    t_est, T_est = system.trajectory()
+    if not np.isfinite(T_est).all():
+        raise AssertionError("resident: a non-finite pose")
+    gt = np.stack([interpolate_gt_pose(scene, t) for t in t_est])
+    res = dict(resident="rpg", card=card_line(), status=system.status.value,
+               rolls_since_good=summary["rolls_since_good"],
+               ticks=len(t_est), dispatches=len(batches),
+               rolls_per_dispatch=RESIDENT_R, timed_ticks=n_ticks,
+               ms_per_tick=wall * 1e3 / n_ticks, ticks_per_s=n_ticks / wall,
+               ate_m=ate_rmse(t_est, T_est, t_est, gt, align=True),
+               ate_bar_m=CLOSED_LOOP_ATE_BAR,
+               tracking_rejects=system.stats["tracking_rejects"],
+               map_points=summary["map_points"],
+               profiled_dispatch=dict(
+                   prof, kernels_per_roll=prof["device_launches"] / RESIDENT_R,
+                   launches_per_roll={k: v / RESIDENT_R for k, v in
+                                      prof["kernel_launches"].items()}))
+    if host_traj is not None:
+        t_h, T_h = host_traj
+        common = {float(t): i for i, t in enumerate(t_h)}
+        pairs = [(T, T_h[common[float(t)]]) for t, T in zip(t_est, T_est)
+                 if float(t) in common]
+        res["vs_host_path"] = dict(
+            ticks=len(pairs),
+            max_t_diff_m=max(float(np.linalg.norm(a[:3, 3] - b[:3, 3]))
+                             for a, b in pairs),
+            max_R_diff_rad=max(pose_angle(a[:3, :3], b[:3, :3])
+                               for a, b in pairs))
     return res
 
 
@@ -934,13 +1120,31 @@ def main() -> int:
     log(dict(check_tracking_solve(system, cpu_rig, cfgs["rpg"]), card=card))
     log(dict(check_sgm(loop["boot"], cfgs["rpg"]), card=card))
 
+    # the resident loop on the same scene and seed, from the same stream
+    scene, ticks, evs = make_events("rpg", rigs["rpg"])
+    resident = run_resident(rigs["rpg"], cfgs["rpg"], scene, ticks, evs,
+                            host_traj=loop["traj"])
+    resident["host_path_ms_per_tracked_tick"] = float(np.median(
+        summary["ms_per_tracked_tick"]))
+    log(resident)
+    in_replays = resident["profiled_dispatch"]["kernel_launches"]
+    if not (resident["status"] == "WORKING"
+            and resident["rolls_since_good"] == 0
+            and resident["ate_m"] < CLOSED_LOOP_ATE_BAR
+            and in_replays["patches"] >= RESIDENT_R
+            and in_replays["lm"] >= RESIDENT_R
+            and in_replays["remap"] >= 6 * RESIDENT_R):
+        raise AssertionError(f"resident loop failed: {resident}")
+
     table = []
     for k, info in KERNELS.items():
         rpg, dsec = checks[(k, "rpg")], checks[(k, "dsec")]
         entry = dict(name=info["name"], route="cuda", source=info["source"],
                      replaces=info["replaces"],
                      launches=sum(n[k] for n in launches.values()),
-                     closed_loop_launches=launches["closed_loop"][k])
+                     closed_loop_launches=launches["closed_loop"][k],
+                     resident_launches_per_roll=resident[
+                         "profiled_dispatch"]["launches_per_roll"][k])
         entry.update(ms=rpg["kernel_ms"], **{key: rpg[key] for key in (
             "max_abs_err", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "call_ms", "timing")})

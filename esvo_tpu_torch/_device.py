@@ -1,5 +1,7 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution and small device constants shared by the port."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -8,3 +10,13 @@ def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller
     names another (the CPU tests pass ``device="cpu"``)."""
     return torch.device("cuda" if device is None else device)
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, built once per
+    (values, dtype, device). Building it copies from host memory, which a
+    CUDA graph cannot capture; a cached constant is built before capture
+    (by the warm-up) and only read inside it. Callers must not write to
+    the result: every caller shares it."""
+    return torch.tensor(values, dtype=dtype, device=device)

@@ -159,7 +159,9 @@ def se3_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
     bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
-    bottom[..., 0, 3] = 1.0
+    # fill_, not `= 1.0`: assigning a Python scalar copies it from host
+    # memory, which a CUDA graph cannot capture
+    bottom[..., 0, 3].fill_(1.0)
     return torch.cat([top, bottom], dim=-2)
 
 
@@ -283,7 +285,7 @@ def matrices_from_rows(rows: torch.Tensor) -> torch.Tensor:
     batch = tuple(rows.shape[1:])
     T34 = torch.movedim(rows, 0, -1).reshape(batch + (3, 4))
     bottom = torch.zeros(batch + (1, 4), dtype=rows.dtype, device=rows.device)
-    bottom[..., 0, 3] = 1.0
+    bottom[..., 0, 3].fill_(1.0)
     return torch.cat([T34, bottom], dim=-2)
 
 

@@ -15,7 +15,7 @@ from dataclasses import dataclass, replace
 
 import torch
 
-from esvo_tpu_torch._device import resolve_device
+from esvo_tpu_torch._device import constant, resolve_device
 from esvo_tpu_torch.geometry.camera import (Camera, cam_to_world, inv3,
                                             world_to_cam)
 from esvo_tpu_torch.mapping.depth_refinement import DepthEstimates
@@ -135,8 +135,8 @@ def _splat(cand: Candidates, height: int, width: int, radius: int):
         offs = [(dy, dx) for dy in r for dx in r]
     K = len(offs)
     dev = col.device
-    dy = torch.tensor([o[0] for o in offs], device=dev)
-    dx = torch.tensor([o[1] for o in offs], device=dev)
+    dy = constant(tuple(o[0] for o in offs), torch.int64, dev)
+    dx = constant(tuple(o[1] for o in offs), torch.int64, dev)
     rows = row[:, None] + dy[None, :]
     cols = col[:, None] + dx[None, :]
     inb = (rows >= 0) & (rows < height) & (cols >= 0) & (cols < width)

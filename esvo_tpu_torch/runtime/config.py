@@ -50,8 +50,9 @@ class TrackingNodeConfig:
     length, and the velocity guard on accepted tracker poses (a solve
     implying faster motion is rejected; after max_consecutive_rejects
     rejections in a row the guard re-anchors to the incoming pose).
-    constant_velocity_prior is read by the device-resident loop, which
-    the port does not have yet."""
+    constant_velocity_prior is read by the device-resident loop
+    (runtime/resident.py) only: its tracker starts each tick from the
+    last accepted step extrapolated once."""
     tracking_rate_hz: float = 100.0
     ref_history_length: int = 10
     max_speed_mps: float = 30.0

@@ -27,7 +27,10 @@ Each entry point runs on ``cuda`` unless the caller passes ``device=``.
 The tracker's stochastic point selection draws from a ``torch.Generator``
 on the system's device, seeded from ``seed`` (the JAX package's
 ``jax.random`` stream cannot be reproduced); ``select_ref_points`` is
-separate from the track bodies, so a caller can hand them any selection.
+separate from the track bodies, so a caller can hand them any selection,
+and is itself one draw (``draw_ref_scores``) and a selection that draws
+nothing (``select_from_scores``), which runtime/resident.py replays in a
+CUDA graph.
 """
 from __future__ import annotations
 
@@ -241,11 +244,21 @@ class MappingCycle(nn.Module):
 
     def push_history(self, est: dr.DepthEstimates) -> None:
         """Write one cycle's estimates into the next ring slot."""
-        slot = self.hist_slot
-        for name in vars(est):
-            getattr(self.history, name)[slot] = getattr(est, name).to(
-                getattr(self.history, name).dtype)
-        self.hist_slot = (slot + 1) % self.F
+        slot = torch.tensor(self.hist_slot, dtype=torch.int64,
+                            device=self.history.valid.device)
+        self.history = self.write_history(self.history, est, slot)
+        self.hist_slot = (self.hist_slot + 1) % self.F
+
+    @staticmethod
+    def write_history(history: dr.DepthEstimates, est: dr.DepthEstimates,
+                      slot: torch.Tensor) -> dr.DepthEstimates:
+        """A new window with one cycle's estimates at `slot`, a 0-d int64
+        tensor (the JAX package's ``_tree_stack_slot``): the slot stays on
+        the device, so a CUDA graph does not bake it in."""
+        idx = slot.reshape(1)
+        return dr.DepthEstimates(**{
+            name: h.index_copy(0, idx, getattr(est, name)[None].to(h.dtype))
+            for name, h in vars(history).items()})
 
 
 # ---------------------------------------------------------------------------
@@ -289,6 +302,9 @@ class EsvoSystem:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self._pending_mapping = None
+        # callbacks of apply_world_correction (a live ResidentLoop mirrors
+        # each correction into its device state)
+        self._world_correction_observers: list = []
         self.reset()
 
     @property
@@ -385,19 +401,32 @@ class EsvoSystem:
         if self._global_voxels:
             pts = np.stack(list(self._global_voxels.values())) @ R.T + tr
             self._global_voxels = dict(zip(self._global_voxels.keys(), pts))
+        for callback in self._world_correction_observers:
+            callback(corr)
 
     # -- tracking --------------------------------------------------------------
+    def draw_ref_scores(self) -> torch.Tensor:
+        """One roll's (H*W,) uniform draws from the system's generator:
+        the random part of the registration-point selection."""
+        return torch.rand(self.H * self.W, generator=self._gen,
+                          device=self.device)
+
     def select_ref_points(self, pts_world: torch.Tensor,
                           pt_valid: torch.Tensor):
         """Stochastic selection of <= M registration points from a map
-        export (valid points first, in random order). Returns (pts (M, 3),
-        ok (M,))."""
+        export (valid points first, in random order): one draw, then
+        select_from_scores. Returns (pts (M, 3), ok (M,))."""
+        return self.select_from_scores(pts_world, pt_valid,
+                                       self.draw_ref_scores())
+
+    def select_from_scores(self, pts_world: torch.Tensor,
+                           pt_valid: torch.Tensor, score: torch.Tensor):
+        """The <= M registration points of a map export (H, W) ordered by
+        `score` (H*W,), valid points first. Draws nothing."""
         M = self.cfg.tracker.max_registration_points
         flat_pts = pts_world.reshape(-1, 3)
         flat_ok = pt_valid.reshape(-1)
-        score = torch.rand(flat_ok.shape, generator=self._gen,
-                           device=self.device) \
-            + torch.where(flat_ok, 0.0, 1e3)
+        score = score + torch.where(flat_ok, 0.0, 1e3)
         idx = torch.argsort(score, stable=True)[:M]
         return flat_pts[idx], flat_ok[idx]
 

@@ -12,7 +12,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from esvo_tpu_torch._device import resolve_device
+from esvo_tpu_torch._device import constant, resolve_device
 from esvo_tpu_torch.geometry.camera import (Camera, remap_bilinear,
                                             remap_bilinear_pair)
 
@@ -170,8 +170,7 @@ def gaussian_blur(img: torch.Tensor, ksize: int) -> torch.Tensor:
     if ksize <= 1:
         return img
     if ksize in _SMALL_GAUSSIAN:
-        k = torch.tensor(_SMALL_GAUSSIAN[ksize], dtype=img.dtype,
-                         device=img.device)
+        k = constant(tuple(_SMALL_GAUSSIAN[ksize]), img.dtype, img.device)
     else:
         sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
         xs = torch.arange(ksize, dtype=img.dtype, device=img.device) \

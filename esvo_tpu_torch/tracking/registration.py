@@ -21,6 +21,7 @@ from dataclasses import dataclass, replace
 
 import torch
 
+from esvo_tpu_torch._device import constant
 from esvo_tpu_torch.geometry.camera import Camera
 from esvo_tpu_torch.geometry.se3 import (cayley_to_rot,
                                          orthonormalize_rotation_fast,
@@ -241,7 +242,7 @@ def solve(prob: RegProblem, camera: Camera, cfg: RegProblemConfig):
         return f, torch.sum(f * f), rms
 
     R, t = prob.R, prob.t
-    lam = torch.tensor(cfg.lm_damping, dtype=dtype, device=dev)
+    lam = constant(cfg.lm_damping, dtype, dev)
     rms_rounds = []
     for it in range(cfg.max_iteration):
         # the batch start is a Python int: the same slices every call

@@ -12,6 +12,11 @@ after the SGM bootstrap, card against the CPU port on the same inputs
 (the same surface and the same selected points), at the tolerance of
 the CPU parity tests (1e-4 m, 1e-4 rad).
 
+The resident loop: one roll captured as a CUDA graph and replayed twice
+from a restored state, each replay against the roll run eagerly (1e-4 m,
+1e-4 rad, map points and accept flags exact), and a capture error that
+raises instead of running the roll eagerly.
+
 Run on a machine with an NVIDIA GPU:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (``tests/conftest.py`` imports JAX, which such a machine need not have).
@@ -210,6 +215,17 @@ def test_lm_launch_plan_on_the_card(smoke):
     assert plan["grid"] == info["sms"] * info["blocks_per_sm"]
     with pytest.raises(RuntimeError):    # 8 warps x 2 x 64x64 f32 > 227 KB
         lm.kernel_info(4, True, 64, 64)
+
+
+def test_lm_launch_after_a_rejected_shape(smoke, rig):
+    """A shape kernel_info rejects leaves no CUDA error behind for the
+    next launch to report (each kernel library has its own runtime)."""
+    with pytest.raises(RuntimeError):
+        smoke.lm.kernel_info(4, True, 64, 64)
+    args, kw = smoke.lm_world(rig, _cfg(smoke, smoke.RPG), 64, 8, seed=5)
+    d, _, _ = smoke.lm.lm_solve(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(d).all()
 
 
 # --- K1 and K3 single and pair --------------------------------------------
@@ -435,3 +451,81 @@ def test_tracking_solve_card_vs_cpu(smoke, booted):
     systems, _, _, cfg, cpu_rig = booted
     res = smoke.check_tracking_solve(systems["cuda"], cpu_rig, cfg)
     assert res["points"] >= 300
+
+
+# --- the resident loop -------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def resident(smoke, rig):
+    """An rpg EsvoSystem on the card after its bootstrap roll, a resident
+    loop (one roll a dispatch) started on it, and the next roll's
+    inputs."""
+    cfg = smoke.SystemConfig.from_dict(smoke.RPG)
+    scene, ticks, frames = smoke.make_stream("rpg", rig, n_ticks=10)
+    system = smoke.EsvoSystem(rig, cfg, device="cuda")
+    system.process_ticks(*smoke._roll_inputs(frames, ticks, 0))
+    assert system.status.value == "WORKING"
+    loop = smoke.ResidentLoop(system, smoke.ROLL, 1)
+    loop.start()
+    return system, loop, smoke._roll_inputs(frames, ticks, smoke.ROLL)
+
+
+def _assert_rolls_agree(smoke, got, want):
+    for a, b in zip(got["poses"], want["poses"]):
+        assert np.linalg.norm(a[:3, 3] - b[:3, 3]) < 1e-4
+        assert smoke.pose_angle(a[:3, :3], b[:3, :3]) < 1e-4
+    assert got["map_points"] == want["map_points"]
+    assert (got["accepted"] == want["accepted"]).all()
+
+
+def test_resident_graph_replays_equal_the_eager_roll(smoke, resident):
+    """Capture one roll; the warm-up moves neither the state nor the
+    generator; two replays from the restored state each equal the roll
+    run eagerly from a clone (1e-4 m, 1e-4 rad, map points and accept
+    flags exact)."""
+    system, loop, roll = resident
+    snap = loop.state.map(torch.clone)
+    gen_state = system._gen.get_state()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    scores = torch.rand(system.H * system.W, device="cuda", generator=gen)
+    loop.stage(*roll, scores=scores)
+    loop._capture()
+    assert all(torch.equal(a, b) for a, b in zip(loop.state.tensors(),
+                                                  snap.tensors()))
+    assert torch.equal(system._gen.get_state(), gen_state)
+    before = smoke.lm.KERNEL.launches
+    replays = []
+    for _ in range(2):
+        loop.state.copy_(snap)
+        replays.append(smoke.unpack(loop.step().cpu().numpy(), loop.K))
+    assert smoke.lm.KERNEL.launches == before      # no eager launch
+    eager = smoke.unpack(loop.roll(snap.map(torch.clone),
+                                   loop.inputs)[1].cpu().numpy(), loop.K)
+    for got in replays:
+        _assert_rolls_agree(smoke, got, eager)
+    assert eager["map_points"] > 0 and eager["accepted"].all()
+
+
+def test_resident_capture_error_raises(smoke, resident):
+    """A roll that syncs the host cannot be captured: the capture raises,
+    no graph is kept, and the state is not advanced by an eager roll."""
+    system, loop, roll = resident
+    bad = smoke.ResidentLoop(system, smoke.ROLL, 1)
+    bad.start()
+    real_roll = bad.roll
+
+    def roll_with_host_sync(st, inp):
+        new, out = real_roll(st, inp)
+        float(out.sum())           # a device-to-host copy
+        return new, out
+
+    bad.roll = roll_with_host_sync
+    bad.stage(*roll)
+    snap = bad.state.map(torch.clone)
+    with pytest.raises(RuntimeError):
+        bad.step()
+    assert bad._graph is None
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(bad.state.tensors(),
+                                                 snap.tensors()))
+    bad.finish()

@@ -25,6 +25,8 @@ def test_import_loads_no_jax():
             "import esvo_tpu_torch.mapping.initialization\n"
             "import esvo_tpu_torch.utils.visualization\n"
             "import esvo_tpu_torch.ops.linalg\n"
+            "import esvo_tpu_torch.runtime.resident\n"
+            "import esvo_tpu_torch.io.stream\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'flax')) or m == 'esvo_tpu' "
             "or m.startswith('esvo_tpu.'))\n"
