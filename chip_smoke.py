@@ -29,19 +29,39 @@
    the host path's, a profiled dispatch (idle share, kernels a roll,
    K1-K3 launches inside the replays by kernel name), the ATE and the
    largest per-tick pose difference from the host path;
-7. the kernel table as one JSON line; the last line is the result.
+7. the tracking solve again while the caller has set float32 matmul
+   precision "high": the port's guard keeps it in full float32 (it must
+   agree with the CPU port) and the caller's setting holds afterwards;
+8. K1 at the event matcher's windows (16x16, 30,000 a surface), checked
+   and timed as in 3;
+9. the mapper benchmark (MVStereoSystem) on the rpg rig, preset and
+   scene in each of its five modes, with ground-truth poses, 30 ticks, a
+   mapping cycle every 5: ms a mapping tick, map points, the error
+   against the scene, K1-K3 launches and peak memory, and each mode's
+   mapping stage replayed by the CPU port on the card's inputs; one
+   event-matching cycle at DSEC scale (N = 10000, 25x25 patches);
+10. scripts/torch_run_dataset.py on a rosbag of the rpg scene that
+   carries its camera_info and ground truth: the closed loop in rolls
+   of 5, the same through the resident loop, and --mode mvstereo;
+   ticks/s, ATE and map points;
+11. the kernel table as one JSON line; the last line is the result.
 
 Any failed check raises, and the script then exits non-zero. Without a
 CUDA device it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
+import importlib.util
 import json
 import math
 import re
+import struct
 import subprocess
 import sys
 import time
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -52,7 +72,8 @@ from torch.profiler import ProfilerActivity
 from esvo_tpu_torch import convert
 from esvo_tpu_torch.geometry.camera import (PinholeParams, StereoRig,
                                             make_camera)
-from esvo_tpu_torch.geometry.se3 import se3_exp, se3_inverse
+from esvo_tpu_torch.geometry.se3 import rot_to_quat, se3_exp, se3_inverse
+from esvo_tpu_torch.io import rosbag
 from esvo_tpu_torch.io.events import EventArray, frame_events
 from esvo_tpu_torch.io.stream import EventFrameStream
 from esvo_tpu_torch.eval.trajectory import ate_rmse
@@ -60,8 +81,11 @@ from esvo_tpu_torch.io.synthetic import (SyntheticScene, interpolate_gt_pose,
                                          make_scene, simulate_stereo_events)
 from esvo_tpu_torch.mapping import depth_refinement as dr
 from esvo_tpu_torch.mapping import initialization as init
+from esvo_tpu_torch.mapping.event_matcher import (
+    EventMatcherConfig, match_events_temporal_stats)
 from esvo_tpu_torch.mapping.regularization import regularize
 from esvo_tpu_torch.ops import _build, lm, patches, remap
+from esvo_tpu_torch.runtime import mvstereo as mv
 from esvo_tpu_torch.runtime.config import SystemConfig
 from esvo_tpu_torch.runtime.resident import ResidentLoop, unpack
 from esvo_tpu_torch.runtime.system import EsvoSystem, MappingCycle
@@ -338,12 +362,13 @@ def check_remap(rig: StereoRig, iters: int = 200) -> dict:
     return res
 
 
-def check_patches(rig: StereoRig, n: int, iters: int = 200) -> dict:
+def check_patches(rig: StereoRig, n: int, iters: int = 200, h: int = 24,
+                  w: int = 32) -> dict:
     """K1 on one surface as one launch, and on two surfaces with two start
     sets as one pair launch; each bit-exact with its twin, timed beside
-    its bound and the advanced-index gather."""
+    its bound and the advanced-index gather. (h, w): the window, the
+    depth LM's 24x32 unless given."""
     H, W = rig.left.height, rig.left.width
-    h, w = 24, 32
     gen = torch.Generator(device="cuda").manual_seed(4)
     img = torch.rand((H, W), generator=gen, device="cuda") * 255
     uy = torch.randint(-4, H - h + 4, (n,), generator=gen, device="cuda",
@@ -690,8 +715,11 @@ def _public(rec: dict) -> dict:
     return {k: v for k, v in rec.items() if k != "estimates"}
 
 
-def compare_to_cpu(card: list[dict], ref: list[dict]) -> dict:
-    """Card cycle against the CPU port's (the twins) on the same events."""
+def compare_to_cpu(card: list[dict], ref: list[dict],
+                   label: str = "rpg cycle, card vs CPU port") -> dict:
+    """Card cycle against the CPU port's (the twins) on the same events:
+    validity on >= 98% of the events, the inverse depth within the LM
+    tolerance (rtol 2e-4, atol 2e-5) on >= 95% of those valid in both."""
     agree, worst, close = [], 0.0, []
     for a, b in zip(card, ref):
         va, vb = a["estimates"].valid.cpu(), b["estimates"].valid
@@ -703,7 +731,7 @@ def compare_to_cpu(card: list[dict], ref: list[dict]) -> dict:
             worst = max(worst, float((da - db).abs().max()))
             close.append(float(torch.isclose(da, db, rtol=2e-4,
                                              atol=2e-5).float().mean()))
-    res = dict(compare="rpg cycle, card vs CPU port", cycles=len(agree),
+    res = dict(compare=label, cycles=len(agree),
                validity_agreement_min=min(agree),
                inv_depth_max_abs_err=worst,
                inv_depth_within_lm_tol_min=min(close) if close else None)
@@ -1005,6 +1033,355 @@ def run_resident(rig: StereoRig, cfg: SystemConfig, scene, ticks, evs,
 
 
 # ---------------------------------------------------------------------------
+# the mapper benchmark (MVStereoSystem) and the dataset runner
+# ---------------------------------------------------------------------------
+
+MV_TICKS = 30
+# tests/test_mvstereo.py's event-matcher config: 15x15 patches, whose
+# 16x16 windows go to kernel K1
+MV_EM = dict(time_threshold=2e-3, epipolar_threshold=1.0,
+             ts_ncc_threshold=0.4, patch_size_x=15, patch_size_y=15,
+             max_candidates=32)
+# per mode, the stage its card-vs-CPU comparison replays, and its owner
+MV_STAGES = {0: ("system", "em_estimate"), 1: ("cycle", "seed_frame"),
+             2: ("system", "refine"), 3: ("cycle", "mapping_estimate"),
+             4: ("cycle", "seed_frame")}
+DATASET_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dataset"
+T0_ABS = 1468941032.0      # epoch-scale bag stamps, as in real rpg bags
+
+
+def _tree(obj, fn):
+    """fn on every tensor of a call's arguments or result (tuples, lists,
+    dicts and dataclasses rebuilt)."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_tree(o, fn) for o in obj)
+    if isinstance(obj, dict):
+        return {k: _tree(v, fn) for k, v in obj.items()}
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return type(obj)(**{f.name: _tree(getattr(obj, f.name), fn)
+                            for f in dataclasses.fields(obj)})
+    return obj
+
+
+def record_calls(owner, name: str, calls: list) -> None:
+    """Wrap owner.name so each call's arguments and result are kept as
+    device-side copies (no sync) in `calls`."""
+    fn = getattr(owner, name)
+
+    def recorded(*args):
+        out = fn(*args)
+        clone = lambda t: t.detach().clone()
+        calls.append((_tree(args, clone), _tree(out, clone)))
+        return out
+    setattr(owner, name, recorded)
+
+
+def frame_rel_err(system: EsvoSystem, scene) -> float:
+    """gt_rel_err of the system's current depth frame (each occupied
+    cell a point seen from the frame's pose)."""
+    g = system.grid
+    occ = g.occupied.reshape(-1)
+    T = system._tensor(system.T_world_frame)
+    est = SimpleNamespace(valid=occ, x=g.x.reshape(-1, 2),
+                          inv_depth=g.inv_depth.reshape(-1),
+                          T_world_cam=T.expand(occ.shape[0], 4, 4))
+    return gt_rel_err(est, scene.points, system.cycle.left_P)
+
+
+def run_mvstereo(rig: StereoRig, cfg: SystemConfig, scene, ticks, frames,
+                 mode, device="cuda", calls: list | None = None):
+    """MVStereoSystem in `mode` over MV_TICKS ticks with the scene's
+    ground-truth poses, a mapping cycle every MAP_EVERY ticks; the
+    replayed stage's calls go to `calls`. Returns (system, ms of each
+    mapping tick: host wall around the tick, ending in a sync)."""
+    system = mv.MVStereoSystem(rig, mode, cfg,
+                               em_config=EventMatcherConfig(**MV_EM),
+                               device=device)
+    if calls is not None:
+        owner, name = MV_STAGES[int(mode)]
+        record_calls(system if owner == "system" else system.cycle, name,
+                     calls)
+    fl, fr = frames
+    cycle_ms = []
+    for k in range(MV_TICKS):
+        t = float(ticks[k])
+        frame = lambda f: {key: v[k] for key, v in f.items()
+                           if key != "dropped"}
+        do_map = k % MAP_EVERY == MAP_EVERY - 1
+        t0 = _sync(device)
+        system.process_tick(t, frame(fl), frame(fr),
+                            gt_pose=interpolate_gt_pose(scene, t),
+                            do_mapping=do_map)
+        if do_map:
+            cycle_ms.append((_sync(device) - t0) * 1e3)
+    return system, cycle_ms
+
+
+def compare_mv_stage(mode, calls: list, cpu: mv.MVStereoSystem) -> dict:
+    """The mode's recorded stage replayed by the CPU port on the card's
+    inputs. Mode 0: the matcher's validity on >= 99% of the events and
+    the disparity within 1e-5 relative where both matched; modes 2 and 3:
+    compare_to_cpu's LM tolerance; mode 1: the naive fusion's map points
+    equal; mode 4 (SGM points): its cells equal on > 99% of the image and
+    its map points within 0.5%."""
+    mode = mv.MVStereoMode(mode)
+    label = f"mvstereo {mode.name.lower()}, card vs CPU port"
+    host = lambda obj: _tree(obj, lambda t: t.cpu())
+    replay = getattr(cpu if MV_STAGES[int(mode)][0] == "system"
+                     else cpu.cycle, MV_STAGES[int(mode)][1])
+    pairs = [(host(out), replay(*host(args))) for args, out in calls]
+    if mode in (mv.MVStereoMode.EM_PLUS_ESTIMATION,
+                mv.MVStereoMode.BM_PLUS_ESTIMATION):
+        est = lambda out: out if mode == 2 else out[0]
+        return compare_to_cpu([dict(estimates=est(a)) for a, _ in pairs],
+                              [dict(estimates=est(b)) for _, b in pairs],
+                              label)
+    if mode == mv.MVStereoMode.PURE_EVENT_MATCHING:
+        agree, worst = [], 0.0
+        for (ma, _), (mb, _) in pairs:
+            agree.append(float((ma.valid == mb.valid).float().mean()))
+            both = ma.valid & mb.valid
+            if both.any():
+                rel = ((ma.disparity[both] - mb.disparity[both]).abs()
+                       / mb.disparity[both].abs())
+                worst = max(worst, float(rel.max()))
+        res = dict(compare=label, cycles=len(pairs),
+                   valid_agreement_min=min(agree),
+                   disparity_max_rel_err=worst,
+                   matched=[int(a[0].valid.sum()) for a, _ in pairs])
+        if not (pairs and min(agree) >= 0.99 and worst <= 1e-5):
+            raise AssertionError(f"matcher: card and CPU disagree: {res}")
+        return res
+    points = [(int(a[2].sum()), int(b[2].sum())) for a, b in pairs]
+    cells = min(float((a[2] == b[2]).float().mean()) for a, b in pairs)
+    res = dict(compare=label, cycles=len(pairs),
+               map_points_card_cpu=points, cell_agreement_min=cells)
+    if mode == mv.MVStereoMode.PURE_BLOCK_MATCHING:
+        ok = all(a == b for a, b in points)
+    else:
+        # SGM points sit on integer pixels, the naive fusion's cell
+        # borders, and a point of an earlier frame propagated to one may
+        # fall either side by a rounding of the card or the CPU
+        ok = cells > 0.99 and all(abs(a - b) <= 0.005 * b
+                                  for a, b in points)
+    if not (pairs and ok):
+        raise AssertionError(f"naive fusion: card and CPU disagree: {res}")
+    return res
+
+
+def mvstereo_phase(rigs, cpu_rig, cfg: SystemConfig, stream, card) -> dict:
+    """The five MVStereo modes on the rpg rig, preset and scene: one line
+    each (mapping-tick ms, map points, error against the scene, K1-K3
+    launches, peak memory) and one card-vs-CPU comparison each. Returns
+    {mode name: launches}."""
+    scene, ticks, frames = stream
+    launches = {}
+    for mode in mv.MVStereoMode:
+        for info in KERNELS.values():
+            info["module"].KERNEL.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        calls = []
+        system, cycle_ms = run_mvstereo(rigs["rpg"], cfg, scene, ticks,
+                                        frames, mode, calls=calls)
+        peak = torch.cuda.max_memory_allocated()
+        n = {k: info["module"].KERNEL.launches
+             for k, info in KERNELS.items()}
+        launches[mode.name.lower()] = n
+        rec = dict(mvstereo=mode.name.lower(), mode=int(mode), card=card,
+                   ticks=MV_TICKS, mapping_cycles=len(cycle_ms),
+                   cycle_ms_median=float(np.median(cycle_ms)),
+                   cycle_ms_range=[min(cycle_ms), max(cycle_ms)],
+                   map_points=system.stats["map_points"],
+                   gt_median_rel_err=frame_rel_err(system, scene),
+                   launches=n, max_memory_allocated_bytes=peak)
+        log(rec)
+        cpu = mv.MVStereoSystem(cpu_rig, mode, cfg,
+                                em_config=EventMatcherConfig(**MV_EM),
+                                device="cpu")
+        log(dict(compare_mv_stage(mode, calls, cpu), card=card))
+        want = dict(remap=1, patches=int(mode) in (0, 2, 3),
+                    lm=int(mode) in (2, 3))
+        if rec["map_points"] <= 0 or any(n[k] < v for k, v in want.items()):
+            raise AssertionError(f"mvstereo {mode.name}: {rec}")
+    return launches
+
+
+def dsec_em_cycle(rig: StereoRig, cfg: SystemConfig, stream, card,
+                  device="cuda") -> dict:
+    """One mode-0 mapping cycle at DSEC scale (N = 10000, the default
+    matcher config: 25x25 patches, whose 26-row windows do not go to
+    K1): the mapping tick's ms, the matcher's window overflow, the peak
+    memory of the tick."""
+    scene, ticks, (fl, fr) = stream
+    system = mv.MVStereoSystem(rig, mv.MVStereoMode.PURE_EVENT_MATCHING,
+                               cfg, device=device)
+    stats = []
+
+    def with_stats(*args):
+        matches, st = match_events_temporal_stats(*args)
+        stats.append(st)
+        return matches
+
+    plain = mv.match_events_temporal
+    mv.match_events_temporal = with_stats
+    try:
+        for k in range(MAP_EVERY):
+            t = float(ticks[k])
+            frame = lambda f: {key: v[k] for key, v in f.items()
+                               if key != "dropped"}
+            if k == MAP_EVERY - 1:
+                launches0 = patches.KERNEL.launches
+                torch.cuda.reset_peak_memory_stats()
+                t0 = _sync(device)
+            out = system.process_tick(t, frame(fl), frame(fr),
+                                      gt_pose=interpolate_gt_pose(scene, t),
+                                      do_mapping=k == MAP_EVERY - 1)
+        ms = (_sync(device) - t0) * 1e3
+    finally:
+        mv.match_events_temporal = plain
+    res = dict(dsec_em="mode 0, one mapping cycle", card=card,
+               events=int(fl["valid"][MAP_EVERY - 1].sum()), N=system.N,
+               patch=[EventMatcherConfig().patch_size_y,
+                      EventMatcherConfig().patch_size_x],
+               mapping_tick_ms=ms,
+               window_overflow=int(stats[-1]["window_overflow"]),
+               map_estimates=out["map_estimates"],
+               map_points=out["map_points"],
+               k1_launches=patches.KERNEL.launches - launches0,
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    if len(stats) != 1 or res["map_estimates"] <= 0:
+        raise AssertionError(f"DSEC EM cycle failed: {res}")
+    return res
+
+
+def _bag_fields(fields: dict) -> bytes:
+    return b"".join(struct.pack("<I", len(k) + 1 + len(v)) + k.encode()
+                    + b"=" + v for k, v in fields.items())
+
+
+def _bag_record(fields: dict, data: bytes) -> bytes:
+    hdr = _bag_fields(fields)
+    return (struct.pack("<I", len(hdr)) + hdr
+            + struct.pack("<I", len(data)) + data)
+
+
+def _bag_string(s: str) -> bytes:
+    return struct.pack("<I", len(s)) + s.encode()
+
+
+def _stamp(t: float) -> bytes:
+    sec = int(t)
+    return struct.pack("<II", sec, int(round((t - sec) * 1e9)))
+
+
+def write_dataset_bag(path: Path, rig: StereoRig, scene, evs) -> None:
+    """A rosbag v2.0 of the scene as a stereo DAVIS would record it:
+    both cameras' raw events (1 ms dvs_msgs/EventArray messages, through
+    the port's writer), then each camera's sensor_msgs/CameraInfo and the
+    ground truth as geometry_msgs/PoseStamped, at epoch-scale stamps."""
+    H, W = rig.left.height, rig.left.width
+    rosbag.write_events_bag(str(path), {
+        topic: EventArray(t=e.t + T0_ABS, x=e.x, y=e.y, p=e.p)
+        for topic, e in zip(("/davis/left/events", "/davis/right/events"),
+                            evs)}, period=1e-3, height=H, width=W)
+    conn = lambda c, topic, kind: _bag_record(
+        {"op": b"\x07", "conn": struct.pack("<I", c),
+         "topic": topic.encode()},
+        _bag_fields({"type": kind.encode(), "md5sum": b"*"}))
+    msg = lambda c, t, data: _bag_record(
+        {"op": b"\x02", "conn": struct.pack("<I", c), "time": _stamp(t)},
+        data)
+    out = [conn(2, "/davis/left/camera_info", "sensor_msgs/CameraInfo"),
+           conn(3, "/davis/right/camera_info", "sensor_msgs/CameraInfo"),
+           conn(4, "/gt/pose", "geometry_msgs/PoseStamped")]
+    for c, cam in ((2, rig.left), (3, rig.right)):
+        prm = cam.params
+        f64 = lambda a: a.double().cpu().numpy().astype("<f8").tobytes()
+        out.append(msg(c, T0_ABS, struct.pack("<III", 0, 0, 0)
+                       + _bag_string("davis") + struct.pack("<II", H, W)
+                       + _bag_string(prm.model)
+                       + struct.pack("<I", prm.D.numel()) + f64(prm.D)
+                       + f64(prm.K) + f64(prm.R) + f64(prm.P)
+                       + struct.pack("<IIIIII?", 0, 0, 0, 0, 0, 0, False)))
+    q = rot_to_quat(torch.as_tensor(scene.traj_poses[:, :3, :3])).numpy()
+    for i, (t, T) in enumerate(zip(scene.traj_times, scene.traj_poses)):
+        out.append(msg(4, T0_ABS + t, struct.pack("<I", i) + _stamp(T0_ABS + t)
+                       + _bag_string("world")
+                       + struct.pack("<7d", *T[:3, 3], *q[i])))
+    with open(path, "ab") as f:
+        f.write(b"".join(out))
+
+
+def run_dataset_phase(rig: StereoRig, card, device="cuda") -> dict:
+    """scripts/torch_run_dataset.py's main() on a bag of the rpg scene
+    that carries its own camera_info and ground truth (no --calib, no
+    preset: the defaults, which are the rpg preset): the closed loop on
+    the host path in rolls of 5, the same through the resident loop, and
+    --mode mvstereo. One line each; returns {run: launches}."""
+    scene, _, evs = make_events("rpg", rig)
+    DATASET_DIR.mkdir(parents=True, exist_ok=True)
+    bag = DATASET_DIR / "rpg_scene.bag"
+    bag.unlink(missing_ok=True)
+    write_dataset_bag(bag, rig, scene, evs)
+    spec = importlib.util.spec_from_file_location(
+        "torch_run_dataset",
+        Path(__file__).resolve().parent / "scripts" / "torch_run_dataset.py")
+    runner = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(runner)
+    base = ["--bag", str(bag), "--bag-gt-topic", "/gt/pose",
+            "--capacity", str(SCENES["rpg"]["cap"]), "--quiet"]
+    runs = {"closed": ["--mode", "closed", "--roll", str(ROLL)],
+            "closed_resident": ["--mode", "closed", "--roll", str(ROLL),
+                                "--resident", str(RESIDENT_R)],
+            "mvstereo": ["--mode", "mvstereo"]}
+    launches = {}
+    for name, extra in runs.items():
+        for info in KERNELS.values():
+            info["module"].KERNEL.launches = 0
+        res = runner.main(base + extra
+                          + ["--out", str(DATASET_DIR / f"{name}.txt")],
+                          device=device)
+        launches[name] = {k: info["module"].KERNEL.launches
+                          for k, info in KERNELS.items()}
+        rec = dict(run_dataset=name, card=card, argv=extra,
+                   ticks=res["ticks"], wall_s=res["wall_s"],
+                   ticks_per_s=res["ticks"] / res["wall_s"],
+                   ate_m=res.get("ate_rmse_m"),
+                   rpe_trans_m=res.get("rpe_trans_rmse_m"),
+                   map_points=res["stats"]["map_points"],
+                   launches=launches[name])
+        log(rec)
+        closed = name.startswith("closed")
+        if rec["map_points"] <= 0 or (closed and not (
+                rec["ate_m"] < CLOSED_LOOP_ATE_BAR)):
+            raise AssertionError(f"run_dataset {name} failed: {rec}")
+    return launches
+
+
+def check_precision(system: EsvoSystem, cpu_rig: StereoRig,
+                    cfg: SystemConfig) -> dict:
+    """check_tracking_solve while the caller has set float32 matmul
+    precision "high" (TF32): the port's guard runs the solve in full
+    float32, so it must still agree with the CPU port (1e-4 m, 1e-4 rad),
+    and the caller's "high" must hold afterwards. The script's own
+    setting ("highest") is restored."""
+    torch.set_float32_matmul_precision("high")
+    try:
+        res = check_tracking_solve(system, cpu_rig, cfg)
+        after = torch.get_float32_matmul_precision()
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    res.update(compare="rpg tracking solve under the caller's "
+               "float32 matmul precision 'high', card vs CPU port",
+               caller_precision_after=after)
+    if after != "high":
+        raise AssertionError(f"the caller's precision came back as {after}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "remap": dict(name="K3 remap", module=remap,
@@ -1119,6 +1496,7 @@ def main() -> int:
                              f"launches {launches['closed_loop']}")
     log(dict(check_tracking_solve(system, cpu_rig, cfgs["rpg"]), card=card))
     log(dict(check_sgm(loop["boot"], cfgs["rpg"]), card=card))
+    log(dict(check_precision(system, cpu_rig, cfgs["rpg"]), card=card))
 
     # the resident loop on the same scene and seed, from the same stream
     scene, ticks, evs = make_events("rpg", rigs["rpg"])
@@ -1136,13 +1514,34 @@ def main() -> int:
             and in_replays["remap"] >= 6 * RESIDENT_R):
         raise AssertionError(f"resident loop failed: {resident}")
 
+    # K1 at the event matcher's windows: 15x15 patches -> 16x16 windows,
+    # N x (NB bands x K // NB slots) of them a surface
+    em = EventMatcherConfig(**MV_EM)
+    nb = math.ceil(2 * em.epipolar_threshold) + 1
+    n_win = cfgs["rpg"].mapping.process_event_num * nb * (
+        em.max_candidates // nb)
+    checks[("patches", "matcher")] = check_patches(
+        rigs["rpg"], n_win, h=em.patch_size_y + 1, w=em.patch_size_x + 1)
+    log(dict(check=KERNELS["patches"]["name"], shape="rpg_matcher",
+             windows=n_win, card=card, **checks[("patches", "matcher")]))
+    mv_launches = mvstereo_phase(rigs, cpu_rig, cfgs["rpg"], streams["rpg"],
+                                 card)
+    log(dsec_em_cycle(rigs["dsec"], cfgs["dsec"], streams["dsec"], card))
+    rd_launches = run_dataset_phase(rigs["rpg"], card)
+
+    phase_launches = [*launches.values(), *mv_launches.values(),
+                      *rd_launches.values()]
     table = []
     for k, info in KERNELS.items():
         rpg, dsec = checks[(k, "rpg")], checks[(k, "dsec")]
         entry = dict(name=info["name"], route="cuda", source=info["source"],
                      replaces=info["replaces"],
-                     launches=sum(n[k] for n in launches.values()),
+                     launches=sum(n[k] for n in phase_launches),
                      closed_loop_launches=launches["closed_loop"][k],
+                     mvstereo_launches={m: n[k] for m, n in
+                                        mv_launches.items()},
+                     run_dataset_launches={r: n[k] for r, n in
+                                           rd_launches.items()},
                      resident_launches_per_roll=resident[
                          "profiled_dispatch"]["launches_per_roll"][k])
         entry.update(ms=rpg["kernel_ms"], **{key: rpg[key] for key in (
@@ -1151,6 +1550,11 @@ def main() -> int:
         entry.update({f"dsec_{key}": dsec[key] for key in (
             "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
             "library_ms")})
+        if k == "patches":
+            matcher = checks[("patches", "matcher")]
+            entry.update({f"matcher_{key}": matcher[key] for key in (
+                "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+                "library_ms")})
         for prefix, rec in (("", rpg), ("dsec_", dsec)):
             if "pair" in rec:
                 entry.update({f"{prefix}pair_{key}": rec["pair"][key]
@@ -1158,10 +1562,12 @@ def main() -> int:
                                           "library_ms")})
         table.append(entry)
     log(dict(floor, card=card))
-    for shape in shapes:
+    for shape in (*shapes, "matcher"):
         log(dict(k1_launch=shape, card=card,
                  **checks[("patches", shape)]["plan"]))
-        log(dict(k2_launch=shape, card=card, **checks[("lm", shape)]["plan"]))
+    for shape in shapes:
+        log(dict(k2_launch=shape, card=card,
+                 **checks[("lm", shape)]["plan"]))
     log(f"card: {card}")
     log(dict(kernels=table))
     log(dict(ok=True, device=dict(platform="gpu", kind=kind,

@@ -25,9 +25,10 @@ An ``EsvoSystem``'s whole state moves as the checkpoint's two parts
 "pose/times", "pose/list", "traj/times", "traj/poses", "T_world_frame",
 "T_world_cur", "gmap/keys", "gmap/pts", "torch_rng_state") and a JSON
 meta dict (status, hist_slot, frames_filled, last_tick_time,
-last_mapping_time, events_since_last_obs, stats). The JAX package's
-checkpoint has the same layout, with its ``jax.random`` key under
-"rng_key" in place of "torch_rng_state".
+last_mapping_time, events_since_last_obs, stats, and an MVStereoSystem's
+mapping method as "mvstereo_mode"). The JAX package's checkpoint has the
+same layout, with its ``jax.random`` key under "rng_key" in place of
+"torch_rng_state" and no "mvstereo_mode".
 """
 from __future__ import annotations
 
@@ -151,6 +152,8 @@ def system_state_to_numpy(system) -> tuple[dict, dict]:
             "last_mapping_time": system.last_mapping_time,
             "events_since_last_obs": system.events_since_last_obs,
             "stats": system.stats}
+    if hasattr(system, "mode"):           # an MVStereoSystem's method
+        meta["mvstereo_mode"] = int(system.mode)
     return arrays, meta
 
 
@@ -183,6 +186,8 @@ def system_state_from_numpy(system, arrays, meta: dict):
     system.last_mapping_time = meta.get("last_mapping_time")
     system.events_since_last_obs = int(meta.get("events_since_last_obs", 0))
     system.stats = dict(meta["stats"])
+    if "mvstereo_mode" in meta and hasattr(system, "mode"):
+        system.mode = type(system.mode)(meta["mvstereo_mode"])
     if "gmap/keys" in arrays:
         system._global_voxels = dict(zip(
             np.asarray(arrays["gmap/keys"]).tolist(),

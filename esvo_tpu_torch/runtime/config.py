@@ -172,13 +172,11 @@ class SystemConfig:
                   time_surface_yaml: str | None = None) -> "SystemConfig":
         """Build from reference-format YAML files (parameter names as in
         cfg/mapping/*.yaml, cfg/tracking/*.yaml, ts_parameters.yaml).
-        Needs PyYAML."""
-        import yaml
-
+        Needs PyYAML only when a file is given: with none it returns the
+        defaults."""
         cfg = SystemConfig()
         if mapping_yaml:
-            with open(mapping_yaml) as f:
-                m = yaml.safe_load(f)
+            m = _load_yaml(mapping_yaml)
             # rpg/hkust name the key "Lnorm", upenn/dsec "LSnorm"
             lnorm = str(m.get("Lnorm", m.get("LSnorm", "Tdist")))
             cfg.depth = DepthProblemConfig(
@@ -226,8 +224,7 @@ class SystemConfig:
                 bm_half_slice_thickness=float(
                     m.get("BM_half_slice_thickness", 0.001)))
         if tracking_yaml:
-            with open(tracking_yaml) as f:
-                t = yaml.safe_load(f)
+            t = _load_yaml(tracking_yaml)
             cfg.tracker = RegProblemConfig(
                 patch_size_x=int(t.get("patch_size_X", 1)),
                 patch_size_y=int(t.get("patch_size_Y", 1)),
@@ -245,8 +242,7 @@ class SystemConfig:
                 tracking_rate_hz=float(t.get("tracking_rate_hz", 100)),
                 ref_history_length=int(t.get("REF_HISTORY_LENGTH", 10)))
         if time_surface_yaml:
-            with open(time_surface_yaml) as f:
-                s = yaml.safe_load(f)
+            s = _load_yaml(time_surface_yaml)
             cfg.surface = TimeSurfaceConfig(
                 decay_sec=float(s.get("decay_ms", 30)) / 1000.0,
                 ignore_polarity=bool(s.get("ignore_polarity", True)),
@@ -256,6 +252,13 @@ class SystemConfig:
                       else "forward"))
         _derive(cfg)
         return cfg
+
+
+def _load_yaml(path: str) -> dict:
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f)
 
 
 def with_overrides(cfg: SystemConfig, overrides) -> SystemConfig:

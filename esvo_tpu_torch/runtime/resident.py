@@ -22,7 +22,9 @@ warm-up on a copy of the state; every roll is then a replay, and the
 host reads back only poses and small counters (one copy per dispatch, in
 ``sync``). A failed capture or replay raises: nothing falls back to the
 eager roll. On CPU tensors the same roll function runs eagerly (the CPU
-tests).
+tests). ``start``, ``run``, ``step`` and ``roll`` run under
+utils/precision.py's ``highest_precision``, so the capture freezes full
+float32 matmul kernels into the graph whatever the caller set.
 
 Semantics preserved against the host-driven roll path:
 - one-roll publish latency: the ref map rebuilt by roll r is first used
@@ -53,6 +55,15 @@ from esvo_tpu_torch.mapping import depth_refinement as dr
 from esvo_tpu_torch.mapping import fusion as fu
 from esvo_tpu_torch.runtime.system import EsvoSystem, SystemStatus
 from esvo_tpu_torch.surface import time_surface as tsf
+from esvo_tpu_torch.utils.precision import highest_precision
+
+
+class TimestampDiscontinuity(RuntimeError):
+    """``ResidentLoop.run`` met a tick time that goes back or jumps by
+    0.5 s or more: the caller finishes the loop and lets the host path
+    reset (a RuntimeError, as in the JAX package; a subclass, so a
+    caller can catch it without catching CUDA errors)."""
+
 
 # block-matching counters of the packed output, in match_events_stats'
 # order
@@ -247,6 +258,7 @@ class ResidentLoop:
         self._started = False
 
     # ------------------------------------------------------------------
+    @highest_precision()
     def roll(self, st: ResidentState, inp: RollInputs):
         """One WORKING roll of K ticks as a plain function of the state
         and the roll's inputs (the JAX package's ``one_roll``). Returns
@@ -347,6 +359,7 @@ class ResidentLoop:
         self.capture_ms = (time.perf_counter() - t1) * 1e3
         self._graph = graph
 
+    @highest_precision()
     def step(self) -> torch.Tensor:
         """One roll on the staged inputs: a replay of the captured graph
         on the card (captured at the first step), the roll function
@@ -434,6 +447,7 @@ class ResidentLoop:
             history=state.history.replace(T_world_cam=torch.einsum(
                 "ij,fnjk->fnik", cj, state.history.T_world_cam)))
 
+    @highest_precision()
     def start(self):
         """Copy the system's host state into the static buffers. The
         system must be WORKING with a usable ref map."""
@@ -481,6 +495,7 @@ class ResidentLoop:
         self.state.copy_(self._correct_body(self.state, corr))
 
     # ------------------------------------------------------------------
+    @highest_precision()
     def run(self, t_syncs, ev_left: dict, ev_right: dict) -> dict:
         """Process R*K ticks: R rolls, each a graph replay on the card.
 
@@ -502,8 +517,9 @@ class ResidentLoop:
         dts = np.diff(np.concatenate(
             [[prev] if prev is not None else [], t_syncs]))
         if len(dts) and ((dts < 0).any() or (dts >= 0.5).any()):
-            raise RuntimeError("timestamp discontinuity: exit the "
-                               "resident loop and reset on the host path")
+            raise TimestampDiscontinuity(
+                "timestamp discontinuity: exit the resident loop and reset "
+                "on the host path")
         ring = torch.empty((self.R, self._out.numel()), dtype=torch.float64,
                            device=self._out.device)
         for r in range(self.R):

@@ -30,7 +30,9 @@ on the system's device, seeded from ``seed`` (the JAX package's
 separate from the track bodies, so a caller can hand them any selection,
 and is itself one draw (``draw_ref_scores``) and a selection that draws
 nothing (``select_from_scores``), which runtime/resident.py replays in a
-CUDA graph.
+CUDA graph. The entry points (``MappingCycle``'s stages, ``track``,
+``process_tick[s]``, ``flush``) run under utils/precision.py's
+``highest_precision``: full float32 matmuls whatever the caller set.
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ from esvo_tpu_torch.ops.interp import gather2d
 from esvo_tpu_torch.runtime.config import SystemConfig
 from esvo_tpu_torch.surface import time_surface as tsf
 from esvo_tpu_torch.tracking import registration as reg
+from esvo_tpu_torch.utils.precision import highest_precision
 
 _CAMERA_TENSORS = ("K", "D", "R", "P")
 _CAMERA_MAPS = ("lut", "inv_map", "mask")
@@ -125,6 +128,7 @@ class MappingCycle(nn.Module):
         self.hist_slot = 0
 
     # -- surfaces ------------------------------------------------------------
+    @highest_precision()
     def render_left(self, st_l: tsf.TimeSurfaceState, t_sync):
         """The left surface alone (the tracker's per-tick input)."""
         cfg = self.cfg.surface
@@ -133,6 +137,7 @@ class MappingCycle(nn.Module):
                   else tsf.render_forward)
         return render(st_l, t, self.camera("left"), cfg)
 
+    @highest_precision()
     def render_pair(self, st_l: tsf.TimeSurfaceState,
                     st_r: tsf.TimeSurfaceState, t_sync):
         """Both surfaces at t_sync; backward renders share one K3
@@ -145,6 +150,7 @@ class MappingCycle(nn.Module):
         return (tsf.render_forward(st_l, t, cam_l, cfg),
                 tsf.render_forward(st_r, t, cam_r, cfg))
 
+    @highest_precision()
     def render_tick(self, st_l: tsf.TimeSurfaceState,
                     st_r: tsf.TimeSurfaceState, ev_l: tsf.EventBatch,
                     ev_r: tsf.EventBatch, t_sync):
@@ -161,14 +167,17 @@ class MappingCycle(nn.Module):
         order = torch.argsort((~valid).to(torch.int8), stable=True)[:self.N]
         return (valid[order],) + tuple(a[order] for a in arrays)
 
-    def lut_lookup(self, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """Rectified (x, y) of raw pixels through the left camera's LUT."""
-        lut = self.left_lut
+    def lut_lookup(self, y: torch.Tensor, x: torch.Tensor,
+                   side: str = "left") -> torch.Tensor:
+        """Rectified (x, y) of raw pixels through one camera's LUT (the
+        left one unless `side` is "right")."""
+        lut = getattr(self, f"{side}_lut")
         yi = torch.clamp(y, 0, self.H - 1)
         xi = torch.clamp(x, 0, self.W - 1)
         return torch.stack([gather2d(lut[..., 0], yi, xi),
                             gather2d(lut[..., 1], yi, xi)], dim=-1)
 
+    @highest_precision()
     def mapping_estimate(self, ts_l, ts_r, ev_x, ev_y, ev_t, ev_valid,
                          pose_times, pose_tab, T_world_frame):
         """One WORKING cycle's estimate stage. Returns (estimates (N,),
@@ -194,6 +203,7 @@ class MappingCycle(nn.Module):
             cfg.mapping.inv_depth_min_range, cfg.mapping.inv_depth_max_range)
         return est, torch.sum(est.valid), bm_stats
 
+    @highest_precision()
     def rebuild_frame(self, history: dr.DepthEstimates,
                       T_world_frame: torch.Tensor):
         """Propagate + fuse the whole window into a fresh depth frame,
@@ -215,6 +225,7 @@ class MappingCycle(nn.Module):
         pts_world, occ = fu.grid_points_world(grid, T_world_frame)
         return grid, pts_world, occ, nfused, ndrop
 
+    @highest_precision()
     def sgm_estimate(self, ts_l, ts_r, ev_x, ev_y, ev_valid,
                      T_world_frame):
         """The SGM bootstrap's estimates at the tick's first N valid
@@ -228,6 +239,7 @@ class MappingCycle(nn.Module):
             init_age=cfg.mapping.age_vis_threshold)
         return est, torch.sum(est.valid)
 
+    @highest_precision()
     def seed_frame(self, history: dr.DepthEstimates,
                    T_world_frame: torch.Tensor):
         """Naive fusion of the window for the SGM bootstrap. Returns
@@ -430,6 +442,7 @@ class EsvoSystem:
         idx = torch.argsort(score, stable=True)[:M]
         return flat_pts[idx], flat_ok[idx]
 
+    @highest_precision()
     def track(self, ts_l: torch.Tensor, T_world_ref: torch.Tensor,
               T_world_cur: torch.Tensor, pts: torch.Tensor, ok: torch.Tensor):
         """Register selected world points to the left surface ts_l from
@@ -554,6 +567,7 @@ class EsvoSystem:
         return np.stack(list(self._global_voxels.values()))
 
     # -- pipeline stages -------------------------------------------------------
+    @highest_precision()
     def process_tick(self, t_sync: float, ev_left: dict, ev_right: dict,
                      gt_pose: np.ndarray | None = None,
                      do_mapping: bool | None = None):
@@ -715,6 +729,7 @@ class EsvoSystem:
         self.history = self.history.replace(
             valid=torch.zeros_like(self.history.valid))
 
+    @highest_precision()
     def process_ticks(self, t_syncs, ev_left: dict, ev_right: dict,
                       gt_poses=None, do_mapping: bool | None = None):
         """K consecutive sync ticks as one roll: K inserts and (while
@@ -837,6 +852,7 @@ class EsvoSystem:
         out["map_points"] = self.stats["map_points"]
         return out
 
+    @highest_precision()
     def flush(self):
         """Finalize a pending mapping cycle (call once after the last
         process_ticks of a run)."""

@@ -9,8 +9,11 @@ Sobel gradients (or forward-mode autodiff for patches larger than 1x1),
 and MAX_ITERATION one-step LM rounds over rotating batches of the point
 set with accept / reject and damping x0.3 / x5.
 
-Every product is a full float32 product: TF32 stays off for matmul
-(PyTorch's default, ``torch.backends.cuda.matmul.allow_tf32 == False``).
+Every product is a full float32 product: ``solve`` runs under
+utils/precision.py's ``highest_precision`` guard, which turns TF32 off for
+matmul (``torch.backends.cuda.matmul.allow_tf32 == False``) whatever the
+caller set with ``torch.set_float32_matmul_precision``, and puts the
+caller's setting back afterwards; it does not rely on PyTorch's default.
 ``solve`` is a Python loop over the rounds whose body has fixed shapes,
 no host sync and no data-dependent Python branch, so that a CUDA graph
 can capture it.
@@ -30,6 +33,7 @@ from esvo_tpu_torch.ops.interp import gather2d, patch_interpolate
 from esvo_tpu_torch.ops.linalg import solve_spd
 from esvo_tpu_torch.surface.time_surface import (gaussian_blur, sobel_x,
                                                  sobel_y)
+from esvo_tpu_torch.utils.precision import highest_precision
 
 
 @dataclass(frozen=True)
@@ -214,6 +218,7 @@ def pose_of(prob: RegProblem) -> torch.Tensor:
     return T
 
 
+@highest_precision()
 def solve(prob: RegProblem, camera: Camera, cfg: RegProblemConfig):
     """MAX_ITERATION one-step LM rounds over rotating point batches.
 

@@ -12,6 +12,11 @@ after the SGM bootstrap, card against the CPU port on the same inputs
 (the same surface and the same selected points), at the tolerance of
 the CPU parity tests (1e-4 m, 1e-4 rad).
 
+The caller's float32 matmul precision "high" does not reach the
+tracking solve (it still agrees with the CPU port) and holds afterwards.
+K1 at the event matcher's 16x16 windows, and MVStereo mode 0 launching
+it.
+
 The resident loop: one roll captured as a CUDA graph and replayed twice
 from a restored state, each replay against the roll run eagerly (1e-4 m,
 1e-4 rad, map points and accept flags exact), and a capture error that
@@ -451,6 +456,48 @@ def test_tracking_solve_card_vs_cpu(smoke, booted):
     systems, _, _, cfg, cpu_rig = booted
     res = smoke.check_tracking_solve(systems["cuda"], cpu_rig, cfg)
     assert res["points"] >= 300
+
+
+def test_tracking_solve_under_callers_high_precision(smoke, booted):
+    """The caller sets float32 matmul precision "high" (TF32): the
+    guarded solve still agrees with the CPU port, and "high" holds
+    afterwards."""
+    systems, _, _, cfg, cpu_rig = booted
+    saved = torch.get_float32_matmul_precision()
+    try:
+        res = smoke.check_precision(systems["cuda"], cpu_rig, cfg)
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    assert res["caller_precision_after"] == "high"
+
+
+# --- the mapper benchmark ----------------------------------------------------
+
+def test_patches_at_the_matchers_windows(smoke, rig):
+    """K1 at the event matcher's 16x16 windows (15x15 patches), at the
+    rpg mvstereo phase's count (1000 events x 30 slots): bit-exact with
+    its twin, with a launch plan for the shape."""
+    res = smoke.check_patches(rig, 30000, iters=3, h=16, w=16)
+    assert res["max_abs_err"] == 0.0 and res["pair"]["max_abs_err"] == 0.0
+    assert res["plan"]["grid"] > 0
+
+
+def test_event_matching_mode_launches_k1(smoke, rig):
+    """MVStereo mode 0 on the card sends the matcher's windows to K1
+    (two launches a mapping cycle: one a surface) and no depth LM."""
+    cfg = smoke.SystemConfig.from_dict(smoke.RPG)
+    scene, ticks, frames = smoke.make_stream("rpg", rig, n_ticks=6)
+    smoke.MV_TICKS, mv_ticks = 5, smoke.MV_TICKS
+    before = (smoke.patches.KERNEL.launches, smoke.lm.KERNEL.launches)
+    try:
+        system, cycle_ms = smoke.run_mvstereo(
+            rig, cfg, scene, ticks, frames,
+            smoke.mv.MVStereoMode.PURE_EVENT_MATCHING)
+    finally:
+        smoke.MV_TICKS = mv_ticks
+    assert len(cycle_ms) == 1 and system.stats["map_points"] > 0
+    assert smoke.patches.KERNEL.launches == before[0] + 2
+    assert smoke.lm.KERNEL.launches == before[1]
 
 
 # --- the resident loop -------------------------------------------------------

@@ -1,6 +1,6 @@
 """The port stands alone: importing esvo_tpu_torch loads neither JAX nor
-the JAX package, and no file of the port (nor chip_smoke.py) imports
-them."""
+the JAX package, and no file of the port (nor chip_smoke.py, nor the
+port's scripts/torch_*.py) imports them."""
 import pathlib
 import re
 import subprocess
@@ -9,8 +9,9 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "esvo_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "esvo_tpu_torch").rglob("*.py"))
+              + sorted((ROOT / "scripts").glob("torch_*.py"))
+              + [ROOT / "chip_smoke.py"])
 # "esvo_tpu." never matches the port's own prefix "esvo_tpu_torch"
 FORBIDDEN = re.compile(r"\b(import|from)\s+(jax|flax)\b|\besvo_tpu\."
                        r"|\b(import|from)\s+esvo_tpu\b")
@@ -27,6 +28,13 @@ def test_import_loads_no_jax():
             "import esvo_tpu_torch.ops.linalg\n"
             "import esvo_tpu_torch.runtime.resident\n"
             "import esvo_tpu_torch.io.stream\n"
+            "import esvo_tpu_torch.mapping.event_matcher\n"
+            "import esvo_tpu_torch.runtime.mvstereo\n"
+            "import esvo_tpu_torch.io.datasets, esvo_tpu_torch.io.rosbag\n"
+            "import esvo_tpu_torch.io.native, esvo_tpu_torch.io.live\n"
+            "import esvo_tpu_torch.utils.precision\n"
+            "sys.path.insert(0, 'scripts')\n"
+            "import torch_run_dataset, torch_run_live, torch_repack_bag\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'flax')) or m == 'esvo_tpu' "
             "or m.startswith('esvo_tpu.'))\n"

@@ -411,7 +411,7 @@ def test_resident_timestamp_watchdog_raises(world):
                  pick(fr, slice(k0, k0 + ROLL)))
     loop.start()
     sl = slice(k0, k0 + ROLL)
-    with pytest.raises(RuntimeError, match="discontinuity"):
+    with pytest.raises(tres.TimestampDiscontinuity, match="discontinuity"):
         loop.run(ticks[sl] + 100.0, pick(fl, sl), pick(fr, sl))
     with pytest.raises(ValueError, match="ticks"):
         loop.run(ticks[k0:k0 + 3], pick(fl, slice(k0, k0 + 3)),
