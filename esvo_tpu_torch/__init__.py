@@ -12,10 +12,15 @@ module layout so each function has an obvious counterpart:
   denoising and the SGM bootstrap;
 - ``tracking``  — the 6-DoF registration tracker;
 - ``runtime``   — ``SystemConfig``, ``MappingCycle``, ``EsvoSystem`` (the
-  closed loop) and checkpoints;
+  closed loop), the resident loop, the mapper benchmark, the BA and
+  pose-graph layers over the loop, and checkpoints;
+- ``backend``   — bundle adjustment, keyframe association, SE(3) pose
+  graphs and loop closure;
 - ``eval``      — ATE / RPE and TUM trajectories;
-- ``io``        — event framing and the synthetic stereo scene;
-- ``utils``     — the debug maps.
+- ``io``        — event framing, the synthetic stereo scene, the event
+  simulator, the dataset loaders and live streams;
+- ``utils``     — the debug maps, the precision guard, timing and the
+  live dashboard.
 
 The package imports torch and numpy only (never jax or esvo_tpu). Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``; on the

@@ -1,4 +1,5 @@
-"""Small symmetric positive-definite solves (port of esvo_tpu/ops/linalg.py).
+"""Small linear solves (port of esvo_tpu/ops/linalg.py, and the LU solve
+and the segment sums of the backend's normal equations).
 
 The tracker solves one 6x6 normal equation per LM round. The JAX package
 unrolls the Cholesky factorization into scalar ops so that XLA fuses it
@@ -28,3 +29,27 @@ def solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     x = torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
     return torch.where((info == 0)[..., None], x,
                        torch.full_like(x, float("nan")))
+
+
+def solve_or_nan(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A^-1 b by LU, NaN where A is singular, without a host sync:
+    ``torch.linalg.solve`` raises on a singular (or non-finite) system
+    where JAX's returns non-finite values; a non-finite step then fails
+    the LM accept test, as in JAX."""
+    x, info = torch.linalg.solve_ex(A, b)
+    return torch.where(info == 0, x, torch.nan)
+
+
+def segment_sum(values: torch.Tensor, index: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """Sum of values (M, ...) into n rows by index (M,): JAX's
+    ``zeros(...).at[index].add(values)``, in one fixed order on either
+    device. On a CUDA tensor ``index_add_`` adds with atomics in whatever
+    order the threads land, so a closed loop with the backend attached
+    would not repeat itself; the sorted accumulate of ``index_put_``
+    does. (On the CPU ``index_add_`` is the sequential one.)"""
+    out = torch.zeros((n,) + values.shape[1:], dtype=values.dtype,
+                      device=values.device)
+    if values.is_cuda:
+        return out.index_put_((index,), values, accumulate=True)
+    return out.index_add_(0, index, values)

@@ -7,11 +7,14 @@ v2.0), a calibration (or the bag's camera_info topics) and the
 reference-format parameter YAMLs, runs the port's EsvoSystem (the closed
 loop, or with ground-truth poses under --mode mvstereo, as the JAX
 runner does), writes the TUM trajectory and reports ATE / RPE when
-ground truth is present. The system runs on the CUDA card; a Python
-caller passes ``main(argv, device="cpu")`` for the CPU.
+ground truth is present. --ba adds the sliding-window bundle adjustment
+(runtime/backend_loop.py), --loop-closure the loop-closure + pose-graph
+backend (runtime/pose_graph_loop.py), --live-view the browser dashboard
+(utils/live_view.py). The system runs on the CUDA card; a Python caller
+passes ``main(argv, device="cpu")`` for the CPU.
 
-The options whose modules are not ported yet (--ba, --loop-closure,
---live-view, --devices > 1) stop the run at argument time.
+--devices > 1 (the event-axis sharding, parallel/sharding.py) is not
+ported yet and stops the run at argument time.
 
 Example:
   python scripts/torch_run_dataset.py --dataset /data/rpg_bin \
@@ -24,35 +27,37 @@ Example:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
+import threading
 import time
 
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from esvo_tpu_torch.backend.loop_closure import (  # noqa: E402
+    LoopClosureConfig)
 from esvo_tpu_torch.eval.trajectory import (  # noqa: E402
-    ate_rmse, interpolate_pose, rpe_stats)
+    ate_rmse, interpolate_pose, rpe_stats, save_tum)
 from esvo_tpu_torch.geometry.camera import load_rig  # noqa: E402
 from esvo_tpu_torch.io import datasets, rosbag  # noqa: E402
 from esvo_tpu_torch.io.events import (  # noqa: E402
     EventArray, load_events_npz, save_events_npz)
 from esvo_tpu_torch.io.stream import EventFrameStream  # noqa: E402
+from esvo_tpu_torch.runtime.backend_loop import BackendLoop  # noqa: E402
 from esvo_tpu_torch.runtime.checkpoint import (  # noqa: E402
     load_checkpoint, save_checkpoint)
 from esvo_tpu_torch.runtime.config import (  # noqa: E402
     SystemConfig, with_overrides)
+from esvo_tpu_torch.runtime.pose_graph_loop import (  # noqa: E402
+    PoseGraphLoop)
 from esvo_tpu_torch.runtime.resident import (  # noqa: E402
     ResidentLoop, TimestampDiscontinuity)
 from esvo_tpu_torch.runtime.system import (  # noqa: E402
     EsvoSystem, SystemStatus)
-
-# options whose modules esvo_tpu_torch does not have yet
-UNPORTED = {"ba": "the bundle-adjustment backend (runtime/backend_loop.py)",
-            "loop_closure": "the loop-closure + pose-graph backend "
-                            "(runtime/pose_graph_loop.py)",
-            "live_view": "the live dashboard (utils/live_view.py)"}
+from esvo_tpu_torch.utils.live_view import LiveViewer  # noqa: E402
 
 
 def parse_args(argv=None):
@@ -111,7 +116,9 @@ def parse_args(argv=None):
                     help="directory: dump invDepth/stdVar/age/cost/"
                          "reprojection images every mapping cycle")
     ap.add_argument("--live-view", type=int, default=None, metavar="PORT",
-                    help="live browser dashboard (not ported yet)")
+                    help="serve a live browser dashboard of the debug "
+                         "maps + system status on this port "
+                         "(utils/live_view.py; open http://localhost:PORT)")
     ap.add_argument("--save-depth-maps",
                     help="directory: per-mapping-cycle depth-map txt files")
     ap.add_argument("--depth-dump-every", type=int, default=1,
@@ -135,23 +142,27 @@ def parse_args(argv=None):
                     help="shard the mapping event axis over N devices "
                          "(not ported yet: only 1)")
     ap.add_argument("--loop-closure", action="store_true",
-                    help="loop-closure + pose-graph backend (not ported "
-                         "yet)")
-    ap.add_argument("--loop-every", type=int, default=5)
-    ap.add_argument("--lc-min-similarity", type=float, default=None)
+                    help="loop-closure + pose-graph backend: time-surface "
+                         "descriptor revisit detection, ICP verification, "
+                         "SE(3) pose-graph optimization "
+                         "(runtime/pose_graph_loop.py)")
+    ap.add_argument("--loop-every", type=int, default=5,
+                    help="mapping cycles per loop-closure keyframe")
+    ap.add_argument("--lc-min-similarity", type=float, default=None,
+                    help="loop-closure descriptor cosine gate (default "
+                         "LoopClosureConfig.min_similarity)")
     ap.add_argument("--lc-set", dest="lc_overrides", action="append",
-                    default=[], metavar="FIELD=VALUE")
+                    default=[], metavar="FIELD=VALUE",
+                    help="override one LoopClosureConfig field "
+                         "(repeatable)")
     ap.add_argument("--ba", action="store_true",
-                    help="sliding-window bundle adjustment (not ported "
-                         "yet)")
+                    help="sliding-window bundle adjustment backend "
+                         "(runtime/backend_loop.py)")
     ap.add_argument("--ba-window", type=int, default=6)
-    ap.add_argument("--ba-every", type=int, default=2)
+    ap.add_argument("--ba-every", type=int, default=2,
+                    help="mapping cycles per BA keyframe")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
-    for name, what in UNPORTED.items():
-        if getattr(args, name) not in (None, False):
-            ap.error(f"--{name.replace('_', '-')}: {what} is not ported to "
-                     "esvo_tpu_torch yet")
     if args.devices > 1:
         ap.error("--devices > 1: the event-axis sharding over a device "
                  "mesh (parallel/sharding.py) is not ported to "
@@ -209,6 +220,25 @@ def load_events(args):
         "no dataset source given (--dataset/--mvsec/--dsec/--bag)")
 
 
+def lc_config(args) -> LoopClosureConfig | None:
+    """The LoopClosureConfig of --lc-min-similarity and --lc-set (None
+    for the defaults)."""
+    if args.lc_min_similarity is None and not args.lc_overrides:
+        return None
+    import yaml
+    kw = {}
+    if args.lc_min_similarity is not None:
+        kw["min_similarity"] = args.lc_min_similarity
+    names = {fld.name for fld in dataclasses.fields(LoopClosureConfig)}
+    for ov in args.lc_overrides:
+        key, sep, val = ov.partition("=")
+        if not sep or key not in names:
+            raise SystemExit(f"--lc-set: unknown field {ov!r}; "
+                             f"fields: {sorted(names)}")
+        kw[key] = yaml.safe_load(val)
+    return dataclasses.replace(LoopClosureConfig(), **kw)
+
+
 def interpolate_gt(gt_times, gt_poses, t):
     """GT pose at time t (translation lerp + SO(3)-projected rotation
     lerp)."""
@@ -241,13 +271,49 @@ def main(argv=None, device=None):
     if args.mode == "mvstereo" and gt_times is None:
         raise SystemExit("--mode mvstereo requires ground-truth poses")
 
-    system = EsvoSystem(rig, cfg, emit_debug_maps=bool(args.debug_maps),
+    system = EsvoSystem(rig, cfg,
+                        emit_debug_maps=bool(args.debug_maps
+                                             or args.live_view is not None),
                         device=device)
+    viewer = None
+    ctl = {"params": [], "reset": False}
+    ctl_lock = threading.Lock()
+    if args.live_view is not None:
+        def _on_param(s):
+            # validated against the config schema now (a bad field is
+            # rejected at the request); applied between chunks with a
+            # system reset, the dynamic_reconfigure analogue
+            with_overrides(system.cfg, [s])
+            with ctl_lock:
+                ctl["params"].append(s)
+            return f"queued {s} (applies with a system reset)"
+
+        def _on_reset():
+            with ctl_lock:
+                ctl["reset"] = True
+
+        viewer = LiveViewer(port=args.live_view, on_param=_on_param,
+                            on_reset=_on_reset)
+        if not args.quiet:
+            print(f"[torch_run_dataset] live view: "
+                  f"http://localhost:{viewer.port}/")
+    backend = None
+    if args.ba:
+        backend = BackendLoop(system, keyframe_every=args.ba_every,
+                              window=args.ba_window)
+    pose_graph = None
+    if args.loop_closure:
+        pose_graph = PoseGraphLoop(system, keyframe_every=args.loop_every,
+                                   lc_config=lc_config(args))
     tick_rate = args.tick_rate_hz or cfg.tracking.tracking_rate_hz
     tick = 1.0 / tick_rate
     t0 = args.start
     if args.resume:
         load_checkpoint(system, args.resume)
+        if backend is not None:
+            backend.load(args.resume)
+        if pose_graph is not None:
+            pose_graph.load(args.resume)
         # fast-forward past the checkpoint: replaying earlier ticks would
         # trip the dt < 0 watchdog and reset the restored state
         if system.last_tick_time is not None \
@@ -331,6 +397,22 @@ def main(argv=None, device=None):
         fl = {key: v for key, v in fl.items() if key != "dropped"}
         fr = {key: v for key, v in fr.items() if key != "dropped"}
         step = len(np.atleast_1d(tl))
+        if viewer is not None and (ctl["params"] or ctl["reset"]):
+            # apply queued live-view control between chunks
+            with ctl_lock:
+                params, ctl["params"] = ctl["params"], []
+                do_reset, ctl["reset"] = ctl["reset"], False
+            if resident is not None:
+                resident.finish()
+                resident = None
+            if params:
+                if not args.quiet:
+                    print(f"[torch_run_dataset] live reconfigure: {params}")
+                system.reconfigure(with_overrides(system.cfg, params))
+            elif do_reset:
+                if not args.quiet:
+                    print("[torch_run_dataset] live reset")
+                system.reset()
         if use_resident and system.status == SystemStatus.WORKING \
                 and step == chunk:
             # the device-resident path: one dispatch a chunk
@@ -358,8 +440,34 @@ def main(argv=None, device=None):
                 resident = None
             out = host_chunk(tl, fl, fr)
         t_sync = sync_times[min(k + step - 1, len(sync_times) - 1)]
+        if backend is not None:
+            backend.maybe_update(out)
+        if pose_graph is not None:
+            pg_stats = pose_graph.maybe_update(out)
+            if pg_stats and not args.quiet:
+                if "pg_cost_final" in pg_stats:
+                    print(f"  loop closure: kf {pg_stats['lc_candidate']} "
+                          f"sim={pg_stats['lc_similarity']:.3f} "
+                          f"edges={pg_stats['pg_num_loop_edges']}")
+                elif "lc_inlier_fraction" in pg_stats:
+                    # cleared the descriptor gate, failed the ICP
+                    print(f"  loop candidate rejected: "
+                          f"kf {pg_stats['lc_candidate']} "
+                          f"sim={pg_stats['lc_similarity']:.3f} "
+                          f"inliers={pg_stats['lc_inlier_fraction']:.2f} "
+                          f"mean_d={pg_stats['lc_mean_dist']:.3f} "
+                          f"corr_t={pg_stats.get('lc_corr_t', -1):.2f} "
+                          f"corr_r={pg_stats.get('lc_corr_r', -1):.2f}")
         if args.debug_maps and "maps" in out:
             _dump_maps(args.debug_maps, k, out["maps"])
+        if viewer is not None:
+            if "maps" in out:
+                for name, img in out["maps"].items():
+                    viewer.update(name, img)
+            viewer.update_text(
+                "status",
+                f"tick {k + step}/{len(sync_times)}  "
+                f"{out['status']}  map={out.get('map_points', 0)}")
         if args.save_depth_maps and ("bm_stats" in out
                                      or "sgm_points" in out):
             n_dumpable += 1
@@ -373,6 +481,10 @@ def main(argv=None, device=None):
                 resident.finish()
                 resident = None
             save_checkpoint(system, args.checkpoint_dir)
+            if backend is not None:
+                backend.save(args.checkpoint_dir)
+            if pose_graph is not None:
+                pose_graph.save(args.checkpoint_dir)
             last_ckpt = t_sync
         if not args.quiet and (k + step) % 100 < step:
             wall = time.perf_counter() - wall0
@@ -383,6 +495,9 @@ def main(argv=None, device=None):
     if resident is not None:
         resident.finish()
     system.flush()
+    if viewer is not None:
+        viewer.update_text("status", "done")
+        viewer.close()
 
     wall = time.perf_counter() - wall0
     system.save_trajectory(args.out)
@@ -399,7 +514,25 @@ def main(argv=None, device=None):
                   f"{args.global_map_out}")
 
     result = {"ticks": len(sync_times), "wall_s": wall,
-              "stats": system.stats}
+              "status": system.status.value, "stats": system.stats}
+    if backend is not None:
+        result["ba_runs"] = backend.num_ba_runs
+        result["ba_rejected_corrections"] = \
+            backend.num_rejected_corrections
+    if pose_graph is not None:
+        result["loop_closures"] = pose_graph.num_loop_closures
+        result["loop_edges"] = pose_graph.loop_edges()
+        # the pose graph redistributes drift over the whole keyframe
+        # chain; apply_world_correction only moves the live pose, so the
+        # optimized trajectory is a separate artifact
+        pg_times, pg_T = pose_graph.optimized_trajectory()
+        if len(pg_times):
+            pg_out = args.out + ".pose_graph.txt"
+            save_tum(pg_out, pg_times, pg_T)
+            result["pose_graph_trajectory"] = pg_out
+            if gt_times is not None:
+                result["pg_ate_rmse_m"] = float(ate_rmse(
+                    pg_times, pg_T, gt_times, gt_poses, align=True))
     if gt_times is not None and args.mode == "closed":
         t_est, T_est = system.trajectory()
         ate = ate_rmse(t_est, T_est, gt_times, gt_poses, align=True)

@@ -5,10 +5,10 @@ the flags and behaviour of scripts/run_live.py.
 Each camera is a TCP stream in io/live.py's packet framing (any driver
 shim can emit it; ``esvo_tpu_torch.io.live.serve_event_stream`` replays a
 recording); the port's EsvoSystem consumes fixed-capacity tick frames
-exactly like a dataset replay. The system runs on the CUDA card; a Python
-caller passes ``main(argv, device="cpu")`` for the CPU. --live-view (the
-dashboard, utils/live_view.py) is not ported yet and stops the run at
-argument time.
+exactly like a dataset replay, with an optional --live-view browser
+dashboard (utils/live_view.py) of the debug maps and the status, whose
+reset button resets the system. The system runs on the CUDA card; a
+Python caller passes ``main(argv, device="cpu")`` for the CPU.
 
 Example (terminal 1 replays a recording as two live senders):
     python - <<'PY'
@@ -37,6 +37,7 @@ from esvo_tpu_torch.io.live import LiveEventStream  # noqa: E402
 from esvo_tpu_torch.runtime.config import (  # noqa: E402
     SystemConfig, with_overrides)
 from esvo_tpu_torch.runtime.system import EsvoSystem  # noqa: E402
+from esvo_tpu_torch.utils.live_view import LiveViewer  # noqa: E402
 
 
 def parse_args(argv=None):
@@ -53,13 +54,11 @@ def parse_args(argv=None):
     ap.add_argument("--frame-timeout", type=float, default=30.0)
     ap.add_argument("--out", default="trajectory_live.txt")
     ap.add_argument("--live-view", type=int, default=None, metavar="PORT",
-                    help="live browser dashboard (not ported yet)")
+                    help="serve a live browser dashboard of the debug maps "
+                         "+ system status on this port (utils/live_view.py;"
+                         " open http://localhost:PORT)")
     ap.add_argument("--quiet", action="store_true")
-    args = ap.parse_args(argv)
-    if args.live_view is not None:
-        ap.error("--live-view: the live dashboard (utils/live_view.py) is "
-                 "not ported to esvo_tpu_torch yet")
-    return args
+    return ap.parse_args(argv)
 
 
 def main(argv=None, device=None):
@@ -71,7 +70,14 @@ def main(argv=None, device=None):
            else SystemConfig())
     if args.overrides:
         cfg = with_overrides(cfg, args.overrides)
-    system = EsvoSystem(rig, cfg, device=device)
+    system = EsvoSystem(rig, cfg, emit_debug_maps=args.live_view is not None,
+                        device=device)
+    viewer = None
+    if args.live_view is not None:
+        viewer = LiveViewer(port=args.live_view,
+                            on_reset=lambda: system.reset())
+        if not args.quiet:
+            print(f"[torch_run_live] view: http://localhost:{viewer.port}/")
 
     def connect(spec):
         host, _, port = spec.rpartition(":")
@@ -111,6 +117,12 @@ def main(argv=None, device=None):
                                 if k2 != "dropped"},
                 {k2: v for k2, v in fr.items() if k2 != "dropped"})
             k += 1
+            if viewer is not None and "maps" in out:
+                for name, img in out["maps"].items():
+                    viewer.update(name, img)
+                viewer.update_text(
+                    "status", f"tick {k}  {out['status']}  "
+                    f"map={out.get('map_points', 0)}")
             if not args.quiet and k % 100 == 0:
                 rate = k / (time.perf_counter() - wall0)
                 print(f"  tick {k} status={out['status']} "
@@ -127,6 +139,8 @@ def main(argv=None, device=None):
     finally:
         left.close()
         right.close()
+        if viewer is not None:
+            viewer.close()
     return {"ticks": k, "status": system.status.value,
             "stats": system.stats}
 

@@ -161,3 +161,79 @@ def test_tracked_tick_after_handover(mv_world, jax_working):
     np.testing.assert_allclose(rms_t.numpy(), np.asarray(rms_j), rtol=1e-3)
     # the tracker moved the pose: the tick is not a no-op
     assert np.linalg.norm(T_j[:3, 3] - js.T_world_cur[:3, 3]) > 1e-5
+
+
+def _correction() -> np.ndarray:
+    """A pose-graph-sized fold-back: 0.03 rad about a skew axis, 9 cm."""
+    w = 0.03 * np.array([0.3, 1.0, 0.2]) / np.linalg.norm([0.3, 1.0, 0.2])
+    th = np.linalg.norm(w)
+    Kx = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / th
+    corr = np.eye(4)
+    corr[:3, :3] = np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
+    corr[:3, 3] = [0.05, -0.03, 0.07]
+    return corr
+
+
+def test_world_correction_after_handover(mv_world, jax_working):
+    """One world correction (what BackendLoop and PoseGraphLoop fold back)
+    through both packages' apply_world_correction on the same state: every
+    world-frame quantity equal within 1e-6 (float32 window poses) and the
+    ref map moved by the correction; then one tracked tick on the
+    corrected state, the port within 1e-4 m / rad of JAX, and in both the
+    tracked pose is the correction times the uncorrected one within 1e-4:
+    the fold-back changes the world frame and nothing else."""
+    js, path = jax_working
+    jc, tc = _configs()
+    jcopy = jckpt.load_checkpoint(jsys.EsvoSystem(mv_world[0], jc, seed=0),
+                                  path)
+    ts = load_checkpoint(_port(mv_world[0], tc), path)
+    rig, scene, ticks, (fl, fr) = mv_world
+    k = HANDOVER_TICK
+    el, er = _frame(fl, k), _frame(fr, k)
+    _, _, sl_j, _ = jcopy._render_tick(
+        jcopy.ts_state_left, jcopy.ts_state_right, jcopy._event_batch(el),
+        jcopy._event_batch(er), jnp.asarray(ticks[k], jnp.float32))
+    sl_j = sl_j.astype(jcopy.dtype)
+    _, _, sl_t, _ = ts.cycle.render_tick(
+        ts.ts_state_left, ts.ts_state_right, ts._event_batch(el),
+        ts._event_batch(er), float(ticks[k]))
+    key = jax.random.PRNGKey(5)
+
+    def track_jax():
+        ref_pts, ref_ok, _ = jcopy._current_ref_map()
+        pts, ok = jcopy._select_ref_points(ref_pts, ref_ok, key)
+        T, _, _ = jcopy._track(sl_j, jnp.asarray(jcopy.T_world_frame,
+                                                 jcopy.dtype),
+                               jnp.asarray(jcopy.T_world_cur, jcopy.dtype),
+                               ref_pts, ref_ok, key)
+        return np.asarray(T, np.float64), pts, ok
+
+    T0, _, _ = track_jax()
+    ref_before = {"jax": np.asarray(jcopy._current_ref_map()[0]),
+                  "port": ts._current_ref_map()[0].numpy()}
+    corr = _correction()
+    jcopy.apply_world_correction(corr)
+    ts.apply_world_correction(corr)
+
+    want = jckpt._flatten(jcopy)
+    got, _ = convert.system_state_to_numpy(ts)
+    for name in ("pose/list", "traj/poses", "T_world_frame", "T_world_cur",
+                 "hist/T_world_cam", "gmap/pts"):
+        np.testing.assert_allclose(got[name], want[name], rtol=0, atol=1e-6,
+                                   err_msg=name)
+    for pkg, after in (("jax", np.asarray(jcopy._current_ref_map()[0])),
+                       ("port", ts._current_ref_map()[0].numpy())):
+        moved = ref_before[pkg] @ corr[:3, :3].T + corr[:3, 3]
+        np.testing.assert_allclose(after, moved, rtol=0, atol=1e-5,
+                                   err_msg=pkg)
+
+    T1, pts, ok = track_jax()
+    T_t, _ = ts.track(sl_t, ts._tensor(jcopy.T_world_frame),
+                      ts._tensor(jcopy.T_world_cur),
+                      torch.tensor(np.asarray(pts)),
+                      torch.tensor(np.asarray(ok)))
+    T_t = T_t.double().numpy()
+    for name, T, ref in (("port vs JAX", T_t, T1),
+                         ("JAX vs correction x uncorrected", T1, corr @ T0)):
+        assert np.linalg.norm(T[:3, 3] - ref[:3, 3]) < 1e-4, name
+        assert _angle(T[:3, :3], ref[:3, :3]) < 1e-4, name

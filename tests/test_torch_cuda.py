@@ -22,6 +22,11 @@ from a restored state, each replay against the roll run eagerly (1e-4 m,
 1e-4 rad, map points and accept flags exact), and a capture error that
 raises instead of running the roll eagerly.
 
+The backend: the loop-closure descriptor, the ICP verification, bundle
+adjustment and the pose graph on the card against the CPU port, BA, the
+pose graph and their segment sums the same bits on every run, and one
+chunk of the event simulator's substeps (chip_smoke.py's cases).
+
 Run on a machine with an NVIDIA GPU:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (``tests/conftest.py`` imports JAX, which such a machine need not have).
@@ -576,3 +581,62 @@ def test_resident_capture_error_raises(smoke, resident):
     assert all(torch.equal(a, b) for a, b in zip(bad.state.tensors(),
                                                  snap.tensors()))
     bad.finish()
+
+
+# -- the backend and the event simulator (chip_smoke.py's cases) ------------
+
+@pytest.mark.parametrize("case", range(4), ids=[
+    "ts_descriptor", "verify_loop_icp", "bundle_adjust",
+    "optimize_pose_graph"])
+def test_backend_function_card_vs_cpu(smoke, case):
+    """The descriptor (1e-5), the ICP verification (accept flag equal, T
+    within 1e-4 m / rad), BA (costs non-increasing, poses within 1e-4)
+    and the pose graph (1e-4) on the card against the CPU port."""
+    name, run, compare = smoke.backend_cases()[case]
+    ok, nums = compare(run("cuda"), run("cpu"))
+    assert ok, (name, nums)
+
+
+def test_esim_chunk_card_vs_cpu(smoke):
+    """One chunk of substeps of the noise-free sensor on the room scene:
+    the events of the card and of the CPU port agree (>= 99.5%, counts
+    within 0.5%)."""
+    c = smoke.CAMPAIGN
+    scene = smoke.esim.make_room_scene(np.random.default_rng(c["seed"]))
+    cfg = smoke.esim.SensorConfig(contrast_threshold=c["contrast"],
+                                  threshold_fpn_sigma=0.0,
+                                  background_rate_hz=0.0, num_hot_pixels=0,
+                                  event_budget_per_step=c["budget"])
+    pose = smoke.campaign_poses()["left"]
+    evs = [smoke.esim.simulate_camera(
+        scene, smoke.campaign_K(), c["width"], c["height"], pose, 0.0,
+        0.064, cfg, np.random.default_rng(1), device=dev)[0]
+        for dev in ("cuda", "cpu")]
+    assert abs(len(evs[0]) - len(evs[1])) <= 0.005 * len(evs[1])
+    assert smoke.event_match_share(*evs) >= 0.995
+
+
+@pytest.mark.parametrize("case", [2, 3], ids=["bundle_adjust",
+                                              "optimize_pose_graph"])
+def test_backend_repeats_itself_on_the_card(smoke, case):
+    """BA and the pose graph give the same bits on a second run on the
+    card: their segment sums add in one fixed order."""
+    _, run, _ = smoke.backend_cases()[case]
+    first, second = (smoke._host_arrays(run("cuda")) for _ in range(2))
+    assert len(first) == len(second) > 0
+    for a, b in zip(first, second):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_segment_sum_repeats_itself_on_the_card(smoke):
+    """ops.linalg.segment_sum on a CUDA tensor: 200,000 float32 rows into
+    64 with many duplicates, the same bits on every call, within 1e-3
+    relative of the CPU's sum."""
+    from esvo_tpu_torch.ops.linalg import segment_sum
+    g = torch.Generator().manual_seed(0)
+    idx = torch.randint(0, 64, (200_000,), generator=g)
+    vals = torch.randn(200_000, 6, 6, generator=g)
+    outs = [segment_sum(vals.cuda(), idx.cuda(), 64).cpu() for _ in range(3)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    ref = segment_sum(vals.double(), idx, 64)
+    torch.testing.assert_close(outs[0].double(), ref, rtol=1e-3, atol=1e-3)

@@ -33,8 +33,18 @@ def test_import_loads_no_jax():
             "import esvo_tpu_torch.io.datasets, esvo_tpu_torch.io.rosbag\n"
             "import esvo_tpu_torch.io.native, esvo_tpu_torch.io.live\n"
             "import esvo_tpu_torch.utils.precision\n"
+            "import esvo_tpu_torch.io.esim, esvo_tpu_torch.backend\n"
+            "import esvo_tpu_torch.backend.bundle_adjustment\n"
+            "import esvo_tpu_torch.backend.keyframes\n"
+            "import esvo_tpu_torch.backend.pose_graph\n"
+            "import esvo_tpu_torch.backend.loop_closure\n"
+            "import esvo_tpu_torch.runtime.backend_loop\n"
+            "import esvo_tpu_torch.runtime.pose_graph_loop\n"
+            "import esvo_tpu_torch.utils.profiling\n"
+            "import esvo_tpu_torch.utils.live_view\n"
             "sys.path.insert(0, 'scripts')\n"
             "import torch_run_dataset, torch_run_live, torch_repack_bag\n"
+            "import torch_sim_campaign\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'flax')) or m == 'esvo_tpu' "
             "or m.startswith('esvo_tpu.'))\n"

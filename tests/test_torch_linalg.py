@@ -3,7 +3,7 @@ package: solve_spd to rtol 1e-4 on random SPD systems, and a non-PD
 matrix gives dx = 0 in both once the caller's isfinite guard has run
 (the tracker's contract); se3_compose, transform_points,
 orthonormalize_rotation (SVD), orthonormalize_rotation_fast and
-matrices_from_rows to 1e-6."""
+matrices_from_rows to 1e-6; segment_sum equal to JAX's scatter-add."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -12,6 +12,7 @@ import torch
 from esvo_tpu.geometry import se3 as jse3
 from esvo_tpu.ops.linalg import solve_spd as jsolve
 from esvo_tpu_torch.geometry import se3 as tse3
+from esvo_tpu_torch.ops.linalg import segment_sum
 from esvo_tpu_torch.ops.linalg import solve_spd as tsolve
 
 f32 = np.float32
@@ -112,3 +113,16 @@ def test_orthonormalize_rotation():
             tse3.orthonormalize_rotation_fast(t(M)).numpy(),
             np.asarray(jse3.orthonormalize_rotation_fast(jnp.asarray(M))),
             atol=1e-6)
+
+
+def test_segment_sum_is_jax_scatter_add():
+    """segment_sum equals JAX's zeros(...).at[index].add(values) on the
+    CPU (repeated indices, empty rows, trailing dims), within 1e-12 in
+    float64."""
+    rng = np.random.default_rng(4)
+    idx = rng.integers(0, 9, size=500)
+    vals = rng.normal(size=(500, 2, 3))
+    want = np.asarray(jnp.zeros((12, 2, 3)).at[jnp.asarray(idx)].add(
+        jnp.asarray(vals)))
+    got = segment_sum(torch.as_tensor(vals), torch.as_tensor(idx), 12)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)

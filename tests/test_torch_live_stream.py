@@ -8,7 +8,6 @@ import os
 import sys
 
 import numpy as np
-import pytest
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
@@ -75,7 +74,7 @@ def test_live_paced_stream_and_eof():
 
 def test_run_live_closed_loop(tmp_path):
     """tests/test_live_stream.py's closed loop, through the port's live
-    runner on two local sockets."""
+    runner on two local sockets, with the live dashboard on."""
     n_threads = torch.get_num_threads()
     torch.set_num_threads(2)
     rng = np.random.default_rng(3)
@@ -106,7 +105,7 @@ def test_run_live_closed_loop(tmp_path):
             "--set", "mapping.std_var_vis_threshold=0.05",
             "--set", "mapping.age_vis_threshold=0",
             "--set", "bm.zncc_threshold=0.25",
-            "--out", out, "--quiet"], device="cpu")
+            "--live-view", "0", "--out", out, "--quiet"], device="cpu")
     finally:
         torch.set_num_threads(n_threads)
     for th in (tl, tr):
@@ -115,6 +114,7 @@ def test_run_live_closed_loop(tmp_path):
     assert result["status"] == "WORKING"
     assert result["stats"]["map_points"] > 200
     assert os.path.exists(out)
-    with pytest.raises(SystemExit):
-        torch_run_live.parse_args(["--left", "a:1", "--right", "b:2",
-                                   "--calib", "c", "--live-view", "9000"])
+    # --live-view (the dashboard, on an ephemeral port above) is wired
+    assert torch_run_live.parse_args(
+        ["--left", "a:1", "--right", "b:2", "--calib", "c",
+         "--live-view", "9000"]).live_view == 9000

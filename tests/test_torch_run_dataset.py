@@ -1,9 +1,11 @@
 """scripts/torch_run_dataset.py on tests/test_run_dataset.py's fixture (an
 rpg text directory with calibration and reference-format YAMLs), run on
 the CPU through ``main(argv, device="cpu")``: the closed loop on the host
-path and through the resident loop, checkpoint and resume, and the
-options whose modules are not ported yet, which stop at argument time.
-The bars are those of tests/test_run_dataset.py's cases.
+path and through the resident loop, checkpoint and resume, and
+--devices > 1 (the sharding is not ported yet), which stops at argument
+time. The backend and dashboard flags run in
+tests/test_torch_run_dataset_backends.py. The bars are those of
+tests/test_run_dataset.py's cases.
 """
 import os
 import sys
@@ -96,9 +98,6 @@ def test_checkpoint_resume(dataset_dir, tmp_path):  # noqa: F811
 
 
 @pytest.mark.parametrize("flags, missing", [
-    (["--ba"], "bundle-adjustment"),
-    (["--loop-closure"], "loop-closure"),
-    (["--live-view", "8000"], "dashboard"),
     (["--devices", "2"], "sharding")])
 def test_unported_flags_stop_at_argument_time(flags, missing, capsys):
     with pytest.raises(SystemExit) as exc:
