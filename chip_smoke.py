@@ -58,7 +58,18 @@
 14. scripts/torch_sim_campaign.py --quick --resident 2 --ba: simulation,
    the closed loop with both backends, and the campaign's scoring
    (loop edges true and none false);
-15. the kernel table as one JSON line; the last line is the result.
+15. the event-axis sharding (parallel/sharding.py), in spawned ranks:
+   world 1 on NCCL (every sharded function at rpg and DSEC sizes and
+   EsvoSystem(mesh=...) over the closed loop's first 25 ticks, bit for
+   bit the unsharded calls on the card; ms a sharded call against the
+   unsharded one), then world 2 on gloo over CUDA tensors with both
+   ranks on this card (tests/test_parallel.py's tolerances, the ranks'
+   replicated outputs bit for bit, the closed loop's ATE under its bar);
+   K1-K3 launches summed over the ranks;
+16. the depth LM's scan (lm_kernel="xla", zncc, unwindowed) and block
+   matching's "matmul" volume at rpg against the CPU port, with ms
+   beside K2's path and the "slice" volume;
+17. the kernel table as one JSON line; the last line is the result.
 
 Any failed check raises, and the script then exits non-zero. Without a
 CUDA device it exits non-zero before printing any result.
@@ -79,6 +90,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity
@@ -86,7 +98,8 @@ from torch.profiler import ProfilerActivity
 from esvo_tpu_torch import convert
 from esvo_tpu_torch.backend import loop_closure as lc
 from esvo_tpu_torch.backend import pose_graph as pgr
-from esvo_tpu_torch.backend.bundle_adjustment import BAConfig, bundle_adjust
+from esvo_tpu_torch.backend.bundle_adjustment import (
+    BAConfig, BAProblem, assemble_normal_equations, bundle_adjust)
 from esvo_tpu_torch.backend.keyframes import KeyframeGraph, build_ba_problem
 from esvo_tpu_torch.geometry.camera import (PinholeParams, StereoRig,
                                             make_camera, make_ideal_rig)
@@ -98,12 +111,15 @@ from esvo_tpu_torch.io.stream import EventFrameStream
 from esvo_tpu_torch.eval.trajectory import ate_rmse, load_tum
 from esvo_tpu_torch.io.synthetic import (SyntheticScene, interpolate_gt_pose,
                                          make_scene, simulate_stereo_events)
+from esvo_tpu_torch.mapping import block_matching as bm
 from esvo_tpu_torch.mapping import depth_refinement as dr
 from esvo_tpu_torch.mapping import initialization as init
 from esvo_tpu_torch.mapping.event_matcher import (
     EventMatcherConfig, match_events_temporal_stats)
 from esvo_tpu_torch.mapping.regularization import regularize
 from esvo_tpu_torch.ops import _build, lm, patches, remap
+from esvo_tpu_torch.ops.linalg import solve_spd
+from esvo_tpu_torch.parallel import sharding as ps
 from esvo_tpu_torch.runtime import backend_loop, mvstereo as mv
 from esvo_tpu_torch.runtime.backend_loop import BackendLoop
 from esvo_tpu_torch.runtime.config import SystemConfig
@@ -111,6 +127,8 @@ from esvo_tpu_torch.runtime.pose_graph_loop import PoseGraphLoop
 from esvo_tpu_torch.runtime.resident import ResidentLoop, unpack
 from esvo_tpu_torch.runtime.system import EsvoSystem, MappingCycle
 from esvo_tpu_torch.surface import time_surface as tsf
+from esvo_tpu_torch.tracking import registration as reg
+from esvo_tpu_torch.utils.precision import highest_precision
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -1555,6 +1573,57 @@ def _keyframe_cloud(scene, T: np.ndarray, n: int, rng):
     return ts.astype(np.float32), p.astype(np.float32)
 
 
+def drift_window(rng) -> KeyframeGraph:
+    """A drifting 6-keyframe window (tests/test_backend_loop.py's
+    test_ba_reduces_drift_ate), as BackendLoop associates it."""
+    P = 400
+    pts = np.stack([rng.uniform(-0.8, 0.8, P), rng.uniform(-0.6, 0.6, P),
+                    rng.uniform(1.5, 3.0, P)], axis=1)
+    graph = KeyframeGraph(fx=150.0, fy=150.0, cx=120.0, cy=90.0)
+    for k in range(6):
+        T = np.eye(4)
+        T[:3, 3] = [0.06 * k, 0.01 * k, 0.0]
+        Tinv = np.linalg.inv(T)
+        pc = pts @ Tinv[:3, :3].T + Tinv[:3, 3]
+        uv = 150.0 * pc[:, :2] / pc[:, 2:] + [120.0, 90.0]
+        ok = (uv[:, 0] > 0) & (uv[:, 0] < 240) & (uv[:, 1] > 0) \
+            & (uv[:, 1] < 180)
+        D = np.eye(4)
+        if k >= 2:
+            D[:3, :3] = _rot3(0.004 * (k - 1) * np.array([0.5, -1, 0.7]))
+            D[:3, 3] = 0.02 * (k - 1) * np.array([1.0, -0.5, 0.3])
+        graph.add_keyframe(D @ T, pts, uv, ok)
+    return graph
+
+
+def circle_chain(rng, K: int = 64):
+    """Ground truth and a drifting odometry estimate of K poses on a
+    circle."""
+    gt = np.tile(np.eye(4), (K, 1, 1))
+    for k in range(K):
+        a = 2 * np.pi * k / K
+        gt[k, :3, :3] = _rot3([0.0, 0.0, a])
+        gt[k, :3, 3] = [np.cos(a), np.sin(a), 0.0]
+    est = [gt[0]]
+    for k in range(K - 1):
+        noise = se3_exp(torch.as_tensor(np.concatenate(
+            [rng.normal(size=3) * 0.003, rng.normal(size=3) * 0.01]))).numpy()
+        est.append(est[-1] @ np.linalg.inv(gt[k]) @ gt[k + 1] @ noise)
+    return gt, np.stack(est)
+
+
+def loop_graph(gt, est, dtype, dev, extra: int) -> pgr.PoseGraph:
+    """The odometry chain of `est` with two loop edges from `gt` (extra
+    >= 2 edge slots; the rest stay invalid)."""
+    K = len(gt)
+    g = pgr.odometry_graph(torch.as_tensor(est, dtype=dtype, device=dev),
+                           extra_capacity=extra)
+    g = pgr.add_edge(g, K - 1, K - 1, 0, np.linalg.inv(gt[-1]) @ gt[0],
+                     200.0, 200.0)
+    return pgr.add_edge(g, K, 40, 8, np.linalg.inv(gt[40]) @ gt[8],
+                        150.0, 150.0)
+
+
 def backend_cases():
     """The four backend functions, each as (name, run(device) -> result,
     compare(card, cpu) -> (ok, numbers)), on inputs made once on the
@@ -1576,54 +1645,19 @@ def backend_cases():
         return lc.verify_loop_icp(t(cloud_a), ok, t(cloud_b), ok, T_a, T_b,
                                   lc.LoopClosureConfig(), gap_s=10.0)
 
-    # a drifting 6-keyframe window (tests/test_backend_loop.py's
-    # test_ba_reduces_drift_ate), packed as BackendLoop packs it
-    P = 400
-    pts = np.stack([rng.uniform(-0.8, 0.8, P), rng.uniform(-0.6, 0.6, P),
-                    rng.uniform(1.5, 3.0, P)], axis=1)
-    graph = KeyframeGraph(fx=150.0, fy=150.0, cx=120.0, cy=90.0)
-    for k in range(6):
-        T = np.eye(4)
-        T[:3, 3] = [0.06 * k, 0.01 * k, 0.0]
-        Tinv = np.linalg.inv(T)
-        pc = pts @ Tinv[:3, :3].T + Tinv[:3, 3]
-        uv = 150.0 * pc[:, :2] / pc[:, 2:] + [120.0, 90.0]
-        ok = (uv[:, 0] > 0) & (uv[:, 0] < 240) & (uv[:, 1] > 0) \
-            & (uv[:, 1] < 180)
-        D = np.eye(4)
-        if k >= 2:
-            D[:3, :3] = _rot3(0.004 * (k - 1) * np.array([0.5, -1, 0.7]))
-            D[:3, 3] = 0.02 * (k - 1) * np.array([1.0, -0.5, 0.3])
-        graph.add_keyframe(D @ T, pts, uv, ok)
+    graph = drift_window(rng)
 
     def ba(dev):
         prob = build_ba_problem(graph, max_points=2000, device=dev)
         return bundle_adjust(prob, BAConfig(max_iterations=8,
                                             num_fixed_poses=2))
 
-    # a 64-pose odometry chain on a circle with drift, two loop edges
-    K = 64
-    gt = np.tile(np.eye(4), (K, 1, 1))
-    for k in range(K):
-        a = 2 * np.pi * k / K
-        gt[k, :3, :3] = _rot3([0.0, 0.0, a])
-        gt[k, :3, 3] = [np.cos(a), np.sin(a), 0.0]
-    est = [gt[0]]
-    for k in range(K - 1):
-        noise = se3_exp(torch.as_tensor(np.concatenate(
-            [rng.normal(size=3) * 0.003, rng.normal(size=3) * 0.01]))).numpy()
-        est.append(est[-1] @ np.linalg.inv(gt[k]) @ gt[k + 1] @ noise)
-    est = np.stack(est)
+    gt, est = circle_chain(rng)
 
     def posegraph(dev):
-        g = pgr.odometry_graph(torch.as_tensor(est, dtype=F32, device=dev),
-                               extra_capacity=2)
-        g = pgr.add_edge(g, K - 1, K - 1, 0, np.linalg.inv(gt[-1]) @ gt[0],
-                         200.0, 200.0)
-        g = pgr.add_edge(g, K, 40, 8, np.linalg.inv(gt[40]) @ gt[8],
-                         150.0, 150.0)
-        return pgr.optimize_pose_graph(g, pgr.PoseGraphConfig(
-            max_iterations=15, huber_threshold=10.0))
+        return pgr.optimize_pose_graph(
+            loop_graph(gt, est, F32, dev, extra=2),
+            pgr.PoseGraphConfig(max_iterations=15, huber_threshold=10.0))
 
     def cmp_desc(a, b):
         err = float((a.cpu() - b).abs().max())
@@ -1926,6 +1960,428 @@ def sim_campaign_phase(card, device="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the event-axis sharding (parallel/sharding.py) and the new mapping paths
+# ---------------------------------------------------------------------------
+
+SHARD_ROLLS = 5            # the sharded closed loop: 25 ticks, 5 cycles
+SHARD_REG = dict(kernel_size=0, lm_damping=1e-3)   # tests/test_parallel.py
+SHARD_BA_ITERS = 4
+SHARD_PG_ITERS = 10
+
+
+def _textured_pair(rng, W: int, H: int, disp: int):
+    """A smooth random left surface and the right one shifted by `disp`
+    pixels plus half an 8-bit level of noise (lm_world's pair)."""
+    base = rng.uniform(0, 255, (H, W + 2 * disp + 64))
+    k = np.ones(5) / 5
+    base = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 1, base)
+    return (base[:, 32:32 + W].astype(np.float32),
+            (base[:, 32 + disp:32 + disp + W]
+             + rng.uniform(-0.5, 0.5, (H, W))).astype(np.float32))
+
+
+def shard_worlds() -> dict:
+    """tests/test_parallel.py's six cases at the port's real sizes, as
+    numpy: a 240x180 surface update of one runner frame (4 x
+    PROCESS_EVENT_NUM = 4000 events); the map estimate at rpg (N = 1000)
+    and DSEC (N = 10000) with their presets; a tracking step of the rpg
+    tracker's 2000 points; the BA normal equations and BA of
+    drift_window; the 64-pose loop graph. BA and the pose graph in
+    float64, as the JAX package's tests run them. Every axis a sharded
+    function splits is even."""
+    w = {}
+    rng = np.random.default_rng(0)
+    W, H, n = 240, 180, 4000
+    w["surface"] = dict(W=W, H=H, x=rng.integers(0, W, n),
+                        y=rng.integers(0, H, n),
+                        t=np.sort(rng.uniform(0, 0.01, n)).astype(np.float32),
+                        p=rng.random(n) > 0.5)
+    for name, n, disp in (("rpg", 1000, 8), ("dsec", 10000, 20)):
+        W, H = RIGS[name][:2]
+        rng = np.random.default_rng(1)
+        ts_l, ts_r = _textured_pair(rng, W, H, disp)
+        x = np.stack([rng.uniform(30 + disp, W - 30, n),
+                      rng.uniform(20, H - 20, n)], 1).astype(np.float32)
+        T = se3_exp(torch.tensor(rng.normal(0, 2e-3, (n, 6)),
+                                 dtype=F32)).numpy()
+        w[f"map_{name}"] = dict(rig=name, ts_l=ts_l, ts_r=ts_r, x_rect=x,
+                                t=np.sort(rng.uniform(0, 0.01, n)).astype(
+                                    np.float32), valid=np.ones(n, bool), T=T)
+    rng = np.random.default_rng(2)
+    W, H, m = 240, 180, 2000
+    w["tracking"] = dict(
+        img=(0.7 * np.arange(W)[None, :] - 0.3 * np.arange(H)[:, None]
+             + 100.0).astype(np.float32),
+        pts=np.stack([rng.uniform(-0.5, 0.5, m), rng.uniform(-0.4, 0.4, m),
+                      rng.uniform(1.0, 2.5, m)], 1).astype(np.float32))
+    prob = build_ba_problem(drift_window(np.random.default_rng(6)),
+                            max_points=2000, dtype=torch.float64,
+                            device="cpu")
+    pad = prob.obs_kf.shape[0] % 2
+    grow = lambda a: torch.cat([a, a.new_zeros((pad,) + a.shape[1:])])
+    w["ba"] = {f.name: getattr(prob, f.name).numpy() if f.name[:3] != "obs"
+               else grow(getattr(prob, f.name)).numpy()
+               for f in dataclasses.fields(prob)}
+    gt, est = circle_chain(np.random.default_rng(12))
+    g = loop_graph(gt, est, torch.float64, "cpu", extra=3)   # 66 edges
+    w["pose_graph"] = {f.name: getattr(g, f.name).numpy()
+                       for f in dataclasses.fields(g)}
+    return w
+
+
+def _t(a, device, dtype=None) -> torch.Tensor:
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
+def case_surface(w, device, mesh=None):
+    ev = tsf.EventBatch.from_arrays(w["x"], w["y"], w["t"], w["p"],
+                                    device=device)
+    state = tsf.init_state(w["H"], w["W"], device)
+    st = (ps.sharded_surface_update(mesh, state, ev) if mesh is not None
+          else tsf.insert_events(state, ev))
+    return st.last_t_pos, st.last_t_neg
+
+
+def case_map(w, device, mesh=None):
+    rig = make_rig(w["rig"], device)
+    preset = RPG if w["rig"] == "rpg" else DSEC
+    bm_cfg = bm.BlockMatchConfig(**preset["bm"])
+    dp_cfg = dr.DepthProblemConfig(**preset["depth"])
+    args = [_t(w[k], device) for k in ("ts_l", "ts_r", "x_rect", "t",
+                                       "valid", "T", "T")]
+    if mesh is not None:
+        return ps.sharded_map_estimate(mesh, rig, bm_cfg, dp_cfg)(*args)
+    ts_l, ts_r, x, t, v, T, _ = args
+    m = bm.match_events(ts_l, ts_r, x, x, t, v, rig.left.mask, rig, bm_cfg)
+    return dr.solve(m.x_left, T, T, m.inv_depth, m.valid, t, ts_l, ts_r,
+                    rig, dp_cfg)
+
+
+@highest_precision()
+def case_tracking(w, device, mesh=None):
+    cam = make_rig("rpg", device).left
+    cfg = reg.RegProblemConfig(**SHARD_REG)
+    neg, gu, gv = reg.negative_time_surface(_t(w["img"], device), 0)
+    R, t = torch.eye(3, device=device), torch.zeros(3, device=device)
+    Twr = torch.eye(4, device=device)
+    pts = _t(w["pts"], device)
+    ok = torch.ones(pts.shape[0], dtype=torch.bool, device=device)
+    if mesh is not None:
+        return ps.sharded_tracking_step(mesh, cam, cfg)(R, t, Twr, neg, gu,
+                                                        gv, pts, ok)
+    prob = reg.RegProblem(R=R, t=t, T_world_ref=Twr, points=pts,
+                          point_valid=ok, ts_negative=neg, grad_u=gu,
+                          grad_v=gv)
+    fvec, _, _ = reg.residuals_and_weights(
+        prob, torch.zeros(6, device=device), pts, ok, cam, cfg)
+    J = reg.analytic_jacobian(prob, pts, ok, cam, cfg)
+    f = fvec.reshape(-1)
+    Hm = torch.matmul(J.T, J)
+    damp = cfg.lm_damping * torch.diag(torch.diag(Hm)) \
+        + 1e-12 * torch.eye(6, device=device)
+    dx = -solve_spd(Hm + damp, torch.matmul(J.T, f))
+    return torch.where(torch.isfinite(dx), dx, 0.0), torch.sum(f * f)
+
+
+def _ba_problem(w, device) -> BAProblem:
+    return BAProblem(**{k: _t(v, device) for k, v in w.items()})
+
+
+def case_ba_blocks(w, device, mesh=None):
+    prob = _ba_problem(w, device)
+    if mesh is None:
+        return assemble_normal_equations(prob, BAConfig())[:4]
+    return ps.sharded_ba_normal_equations(mesh, BAConfig())(
+        prob.T_world_kf, prob.points, prob.obs_kf, prob.obs_point,
+        prob.obs_uv, prob.obs_valid, prob.fx, prob.fy, prob.cx, prob.cy)
+
+
+def case_ba(w, device, mesh=None):
+    prob = _ba_problem(w, device)
+    cfg = BAConfig(max_iterations=SHARD_BA_ITERS)
+    res, costs = (ps.sharded_bundle_adjust(mesh, cfg)(prob)
+                  if mesh is not None else bundle_adjust(prob, cfg))
+    return res.T_world_kf, res.points, costs
+
+
+def case_pose_graph(w, device, mesh=None):
+    graph = pgr.PoseGraph(**{k: _t(v, device) for k, v in w.items()})
+    cfg = pgr.PoseGraphConfig(max_iterations=SHARD_PG_ITERS)
+    res, costs = (ps.sharded_pose_graph(mesh, cfg)(graph)
+                  if mesh is not None
+                  else pgr.optimize_pose_graph(graph, cfg))
+    return res.T_world, costs
+
+
+# case -> (its function, its world in shard_worlds)
+SHARD_CASES = {"surface": (case_surface, "surface"),
+               "map_rpg": (case_map, "map_rpg"),
+               "map_dsec": (case_map, "map_dsec"),
+               "tracking": (case_tracking, "tracking"),
+               "ba_blocks": (case_ba_blocks, "ba"),
+               "ba": (case_ba, "ba"),
+               "pose_graph": (case_pose_graph, "pose_graph")}
+
+
+def shard_cases(worlds: dict, device, mesh=None) -> dict:
+    """Every case through its sharded function (with a mesh) or the
+    unsharded call (without)."""
+    return {case: fn(worlds[world], device, mesh)
+            for case, (fn, world) in SHARD_CASES.items()}
+
+
+def shard_some(worlds: dict, cases, device) -> dict:
+    """Rank body of tests/test_torch_cuda.py: the named cases through
+    their sharded functions on the mesh of all ranks."""
+    mesh = ps.make_mesh()
+    return {case: SHARD_CASES[case][0](worlds[SHARD_CASES[case][1]], device,
+                                       mesh) for case in cases}
+
+
+def shard_loop(rolls, device, mesh) -> dict:
+    """EsvoSystem(mesh=...) over the closed-loop phase's first SHARD_ROLLS
+    rolls (same stream, preset and point-selection seed). Returns the
+    trajectory and the status."""
+    system = EsvoSystem(make_rig("rpg", device), SystemConfig.from_dict(RPG),
+                        mesh=mesh, device=device, seed=0)
+    for t_r, ev_l, ev_r in rolls:
+        system.process_ticks(t_r, ev_l, ev_r)
+    t_est, T_est = system.trajectory()
+    return dict(t=np.asarray(t_est), T=np.asarray(T_est),
+                status=system.status.value,
+                map_points=system.stats["map_points"])
+
+
+def shard_rank(worlds: dict, rolls, device) -> dict:
+    """One rank of the sharded phase: every case once through its sharded
+    function and the sharded closed loop, with the K1-K3 launches that
+    run made (counted from 0); then, on a one-rank mesh, ms a sharded
+    call against the unsharded one in this same process."""
+    mesh = ps.make_mesh()
+    for info in KERNELS.values():
+        info["module"].KERNEL.launches = 0
+    cases = shard_cases(worlds, device, mesh)
+    loop = shard_loop(rolls, device, mesh)
+    _sync(device)
+    launches = {k: info["module"].KERNEL.launches
+                for k, info in KERNELS.items()}
+    ms = {}
+    if mesh.size() == 1 and device.type == "cuda":
+        for case in ("surface", "map_rpg", "map_dsec", "tracking"):
+            fn, world = SHARD_CASES[case]
+            w = worlds[world]
+            ms[case] = dict(
+                sharded_ms=cuda_ms(lambda: fn(w, device, mesh), 5, warmup=1),
+                unsharded_ms=cuda_ms(lambda: fn(w, device), 5, warmup=1))
+    return dict(cases=cases, loop=loop, launches=launches, ms=ms,
+                backend=dist.get_backend(), rank=dist.get_rank())
+
+
+def _max_diff(a: list, b: list) -> float:
+    """Largest absolute difference over two outputs (_host_arrays), NaN
+    where their shapes differ (NaN lanes are left out: _bitwise sees
+    them)."""
+    if any(x.shape != y.shape for x, y in zip(a, b)):
+        return math.nan
+    return max((float(np.nanmax(np.abs(x.astype(np.float64)
+                                       - y.astype(np.float64)), initial=0))
+                for x, y in zip(a, b) if x.size), default=0.0)
+
+
+def _bitwise(a: list, b: list) -> bool:
+    """Two outputs (_host_arrays) with the same bits, NaN payloads and
+    signed zeros included."""
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and x.tobytes() == y.tobytes() for x, y in zip(a, b))
+
+
+def _close(x, y, rtol, atol) -> bool:
+    return bool(np.allclose(x, y, rtol=rtol, atol=atol))
+
+
+def shard_within_tol(case: str, got: list, want: list) -> bool:
+    """tests/test_parallel.py's tolerances of a sharded call against the
+    unsharded one: surfaces exact; map estimate validity exact and
+    inverse depth rtol 1e-5 / atol 1e-7; tracking cost rtol 1e-5 and dx
+    rtol 0.1 / atol 1e-3; BA blocks rtol 1e-6 / atol 1e-8; BA and pose
+    graph costs rtol 1e-5, poses rtol 1e-4 / atol 1e-6, points rtol 1e-4
+    / atol 1e-5."""
+    if case == "surface":
+        return _bitwise(got, want)
+    if case.startswith("map_"):
+        names = [f.name for f in dataclasses.fields(dr.DepthEstimates)]
+        g, w = dict(zip(names, got)), dict(zip(names, want))
+        return (np.array_equal(g["valid"], w["valid"])
+                and _close(g["inv_depth"], w["inv_depth"], 1e-5, 1e-7))
+    if case == "tracking":
+        return (_close(got[1], want[1], 1e-5, 0.0)
+                and _close(got[0], want[0], 0.1, 1e-3))
+    if case == "ba_blocks":
+        return all(_close(g, w, 1e-6, 1e-8) for g, w in zip(got, want))
+    if case == "ba":
+        return (_close(got[2], want[2], 1e-5, 0.0)
+                and _close(got[0], want[0], 1e-4, 1e-6)
+                and _close(got[1], want[1], 1e-4, 1e-5))
+    return (_close(got[1], want[1], 1e-5, 0.0)
+            and _close(got[0], want[0], 1e-4, 1e-6))
+
+
+def sharded_phase(card, scene, ticks, frames, host_traj,
+                  device="cuda") -> dict:
+    """The event-axis sharding on the card. World 1 on NCCL (one spawned
+    rank, so this process keeps no process group): every case and the
+    closed loop's first SHARD_ROLLS rolls equal the unsharded calls on
+    the card bit for bit (a collective over one rank is the identity).
+    World 2 on gloo over CUDA tensors, both ranks on this card: each case
+    within tests/test_parallel.py's tolerances of the unsharded call, the
+    outputs the ranks replicate equal bit for bit, the closed loop's ATE
+    under its bar. Returns the K1-K3 launches of both worlds' sharded
+    runs, summed over their ranks."""
+    worlds = shard_worlds()
+    rolls = [_roll_inputs(frames, ticks, r * ROLL)
+             for r in range(SHARD_ROLLS)]
+    ref = {case: _host_arrays(out)
+           for case, out in shard_cases(worlds, device).items()}
+    n = SHARD_ROLLS * ROLL
+    t_host, T_host = host_traj[0][:n], host_traj[1][:n]
+    launches = {k: 0 for k in KERNELS}
+    failures = []
+    nccl = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    for world, backend in ((1, nccl), (2, "gloo")):
+        t0 = time.perf_counter()
+        res = ps.spawn_ranks(shard_rank, world, worlds, rolls,
+                             device=device, backend=backend)
+        wall = time.perf_counter() - t0
+        per_rank = [r["launches"] for r in res]
+        for k in launches:
+            launches[k] += sum(r[k] for r in per_rank)
+        for case in SHARD_CASES:
+            got = _host_arrays(res[0]["cases"][case])
+            exact = _bitwise(got, ref[case])
+            rec = dict(sharded=case, world=world, backend=res[0]["backend"],
+                       card=card, bitwise=exact,
+                       max_abs_diff=_max_diff(got, ref[case]))
+            if world == 1:
+                ok = exact
+            else:
+                rec["within_tol"] = shard_within_tol(case, got, ref[case])
+                rec["ranks_bitwise"] = all(
+                    _bitwise(_host_arrays(r["cases"][case]), got)
+                    for r in res[1:])
+                ok = rec["within_tol"] and rec["ranks_bitwise"]
+            log(rec)
+            if not ok:
+                failures.append((world, case))
+        loop = res[0]["loop"]
+        gt = np.stack([interpolate_gt_pose(scene, t) for t in loop["t"]])
+        ate = ate_rmse(loop["t"], loop["T"], loop["t"], gt, align=True)
+        same_t = np.array_equal(loop["t"], t_host)
+        rec = dict(sharded_loop="rpg", world=world,
+                   backend=res[0]["backend"], card=card, ticks=len(loop["t"]),
+                   status=loop["status"], map_points=loop["map_points"],
+                   ate_m=ate, ate_bar_m=CLOSED_LOOP_ATE_BAR,
+                   host_path_bitwise=same_t and np.array_equal(loop["T"],
+                                                               T_host),
+                   host_path_max_diff=float(np.abs(loop["T"] - T_host).max())
+                   if same_t else math.nan,
+                   ranks_bitwise=all(np.array_equal(r["loop"]["T"], loop["T"])
+                                     for r in res[1:]),
+                   launches_per_rank=per_rank, phase_wall_s=wall)
+        log(rec)
+        if not (rec["status"] == "WORKING" and ate < CLOSED_LOOP_ATE_BAR
+                and rec["ranks_bitwise"]
+                and (world > 1 or rec["host_path_bitwise"])):
+            failures.append((world, "closed loop"))
+        if world == 1:
+            log(dict(sharded_vs_unsharded_ms=res[0]["ms"], world=1,
+                     backend=res[0]["backend"], card=card))
+    log(dict(sharded_launches=launches, card=card))
+    if failures or min(launches.values()) == 0:
+        raise AssertionError(f"sharded phase failed: {failures}, "
+                             f"launches {launches}")
+    return launches
+
+
+def new_paths_phase(card, device="cuda") -> None:
+    """The depth LM's scan (lm_kernel="xla", the zncc norm, the unwindowed
+    solve) and block matching's "matmul" volume on the card at rpg (N =
+    1000), each against the CPU port on the same inputs at the CPU
+    tests' tolerances (tests/test_torch_lm.py: validity and inverse depth
+    rtol 2e-4 / atol 2e-5 on >= 98% of events; tests/
+    test_torch_block_matching.py: validity and disparity on >= 99%, cost
+    atol 2e-4), with ms beside K2's path and the "slice" volume."""
+    cfg = SystemConfig.from_dict(RPG)
+    rigs = {"card": make_rig("rpg", device), "cpu": make_rig("rpg", "cpu")}
+    rng = np.random.default_rng(7)
+    n, disp = 1000, 8
+    ts_l, ts_r = _textured_pair(rng, 240, 180, disp)
+    f = float(rigs["cpu"].left.params.P[0, 0])
+    x = np.stack([rng.uniform(30 + disp, 210, n), rng.uniform(20, 160, n)],
+                 1).astype(np.float32)
+    d_init = (disp / (f * float(rigs["cpu"].baseline))
+              * rng.uniform(0.85, 1.15, n)).astype(np.float32)
+    T = se3_exp(torch.tensor(rng.normal(0, 2e-3, (n, 6)), dtype=F32)).numpy()
+    inputs = {}
+    for name, rig in rigs.items():
+        dev = rig.left.lut.device
+        inputs[name] = ([_t(a, dev) for a in (x, T, T, d_init)]
+                        + [torch.ones(n, dtype=torch.bool, device=dev),
+                           torch.zeros(n, device=dev), _t(ts_l, dev),
+                           _t(ts_r, dev)])
+    failures = []
+    for name, kw in (("K2", {}), ("xla scan", dict(lm_kernel="xla")),
+                     ("zncc scan", dict(ls_norm="zncc")),
+                     ("unwindowed scan", dict(window_margin=-1))):
+        dcfg = dataclasses.replace(cfg.depth, **kw)
+        run = {k: (lambda k=k: dr.solve(*inputs[k], rigs[k], dcfg))
+               for k in rigs}
+        a, b = run["card"](), run["cpu"]()
+        va, vb = a.valid.cpu().numpy(), b.valid.numpy()
+        both = va & vb
+        close = np.isclose(a.inv_depth.cpu().numpy()[both],
+                           b.inv_depth.numpy()[both], rtol=2e-4, atol=2e-5)
+        rec = dict(mapping_path=f"depth LM {name}", card=card, n=n,
+                   valid=int(va.sum()), validity_agree=float((va == vb).mean()),
+                   inv_depth_within=float(close.mean()),
+                   ms=cuda_ms(run["card"], 10, warmup=2))
+        log(rec)
+        if not (both.sum() > 0.5 * n and rec["validity_agree"] > 0.98
+                and rec["inv_depth_within"] >= 0.98):
+            failures.append(name)
+    want = None
+    for strategy in ("slice", "matmul"):
+        bcfg = dataclasses.replace(cfg.bm, cost_strategy=strategy)
+        run = {k: (lambda k=k: bm.match_events(
+            inputs[k][6], inputs[k][7], inputs[k][0], inputs[k][0],
+            inputs[k][5], inputs[k][4], rigs[k].left.mask, rigs[k], bcfg))
+            for k in rigs}
+        a = run["card"]()
+        if want is None:
+            want = run["cpu"]()     # the CPU port's "slice": the reference
+        va, vb = a.valid.cpu().numpy(), want.valid.numpy()
+        both = va & vb
+        rec = dict(mapping_path=f"block matching {strategy}", card=card, n=n,
+                   matched=int(va.sum()),
+                   validity_agree=float((va == vb).mean()),
+                   disparity_equal=float((a.disparity.cpu().numpy()[both]
+                                          == want.disparity.numpy()[both])
+                                         .mean()),
+                   cost_max_abs_diff=float(np.abs(
+                       a.cost.cpu().numpy()[both]
+                       - want.cost.numpy()[both]).max()),
+                   ms=cuda_ms(run["card"], 10, warmup=2))
+        log(rec)
+        if not (both.sum() > 0.5 * n and rec["validity_agree"] >= 0.99
+                and rec["disparity_equal"] >= 0.99
+                and rec["cost_max_abs_diff"] <= 2e-4):
+            failures.append(strategy)
+    if failures:
+        raise AssertionError(f"new mapping paths differ from the CPU port: "
+                             f"{failures}")
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "remap": dict(name="K3 remap", module=remap,
@@ -2080,6 +2536,13 @@ def main() -> int:
     bl_launches = backend_loop_phase(card)
     launches["sim_campaign"] = sim_campaign_phase(card)
 
+    # the event-axis sharding (world 1 on NCCL, world 2 on gloo over this
+    # card) and the depth LM's scan / block matching's "matmul" volume
+    scene, ticks, frames = streams["rpg"]
+    launches["sharded"] = sharded_phase(card, scene, ticks, frames,
+                                        loop["traj"])
+    new_paths_phase(card)
+
     phase_launches = [*launches.values(), *mv_launches.values(),
                       *rd_launches.values(), *bl_launches.values()]
     table = []
@@ -2096,6 +2559,7 @@ def main() -> int:
                      backend_loop_launches={r: n[k] for r, n in
                                             bl_launches.items()},
                      sim_campaign_launches=launches["sim_campaign"][k],
+                     sharded_launches=launches["sharded"][k],
                      resident_launches_per_roll=resident[
                          "profiled_dispatch"]["launches_per_roll"][k])
         entry.update(ms=rpg["kernel_ms"], **{key: rpg[key] for key in (

@@ -16,6 +16,10 @@ esvo_tpu/backend/bundle_adjustment.py).
   per-iteration accept / reject damping (Levenberg-Marquardt), no host
   sync inside the loop.
 
+With a process group (``group=``) the observation axis is sharded over
+its ranks (parallel/sharding.py): every segment sum and cost sum is
+all-reduced, JAX's psum sites; poses and points stay replicated.
+
 Pose increments are Cayley + translation around the current estimate,
 matching the tracker. Every solve runs under ``highest_precision``. The
 segment sums add in another order on the card than on the CPU, so a card
@@ -28,7 +32,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from esvo_tpu_torch.geometry.se3 import cayley_to_rot, orthonormalize_rotation
-from esvo_tpu_torch.ops.linalg import segment_sum, solve_or_nan
+from esvo_tpu_torch.ops.linalg import psum, segment_sum, solve_or_nan
 from esvo_tpu_torch.utils.precision import highest_precision
 
 
@@ -130,31 +134,37 @@ def _huber_weights(r: torch.Tensor, ok: torch.Tensor, cfg: BAConfig):
 
 
 @highest_precision()
-def assemble_normal_equations(prob: BAProblem, cfg: BAConfig):
+def assemble_normal_equations(prob: BAProblem, cfg: BAConfig, group=None):
     """Weighted GN normal-equation blocks via segment sums.
 
     Returns (B (K,6,6), C (P,3,3), gc (K,6), gp (P,3), E_obs (M,6,3),
     cost): observation-indexed, the dense per-(point, keyframe) cross
-    tensor (P, K, 6, 3) is never materialized."""
+    tensor (P, K, 6, 3) is never materialized. With `group` the
+    observations are this rank's block and every sum is all-reduced
+    (E_obs stays the rank's own)."""
     K = prob.T_world_kf.shape[0]
     P = prob.points.shape[0]
     r, Jc, Jp, ok = reprojection_residuals(prob)
     w, rn = _huber_weights(r, ok, cfg)
-    cost = torch.sum(w * rn * rn)
+    cost = psum(torch.sum(w * rn * rn), group)
 
     wJc = Jc * w[:, None, None]
     wJp = Jp * w[:, None, None]
-    B = segment_sum(torch.einsum("nij,nik->njk", wJc, Jc), prob.obs_kf, K)
-    C = segment_sum(torch.einsum("nij,nik->njk", wJp, Jp), prob.obs_point,
-                     P)
-    gc = segment_sum(torch.einsum("nij,ni->nj", wJc, r), prob.obs_kf, K)
-    gp = segment_sum(torch.einsum("nij,ni->nj", wJp, r), prob.obs_point, P)
+    B = psum(segment_sum(torch.einsum("nij,nik->njk", wJc, Jc),
+                         prob.obs_kf, K), group)
+    C = psum(segment_sum(torch.einsum("nij,nik->njk", wJp, Jp),
+                         prob.obs_point, P), group)
+    gc = psum(segment_sum(torch.einsum("nij,ni->nj", wJc, r), prob.obs_kf,
+                          K), group)
+    gp = psum(segment_sum(torch.einsum("nij,ni->nj", wJp, r),
+                          prob.obs_point, P), group)
     E_obs = torch.einsum("nij,nik->njk", wJc, Jp)          # (M, 6, 3)
     return B, C, gc, gp, E_obs, cost
 
 
 @highest_precision()
-def _gn_step(prob: BAProblem, cfg: BAConfig, lam: torch.Tensor):
+def _gn_step(prob: BAProblem, cfg: BAConfig, lam: torch.Tensor,
+             group=None):
     """One damped Schur-complement GN step. Returns (dx_poses (K,6),
     dpoints (P,3), cost).
 
@@ -164,7 +174,8 @@ def _gn_step(prob: BAProblem, cfg: BAConfig, lam: torch.Tensor):
     K = prob.T_world_kf.shape[0]
     P = prob.points.shape[0]
     dtype, dev = prob.points.dtype, prob.points.device
-    B, C, gc, gp, E_obs, cost = assemble_normal_equations(prob, cfg)
+    B, C, gc, gp, E_obs, cost = assemble_normal_equations(prob, cfg,
+                                                          group)
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
 
@@ -182,15 +193,17 @@ def _gn_step(prob: BAProblem, cfg: BAConfig, lam: torch.Tensor):
     cols = []
     for l in range(K):
         sel = (prob.obs_kf == l)[:, None, None]
-        A = segment_sum(torch.where(sel, E_obs, 0.0), prob.obs_point, P)
+        A = psum(segment_sum(torch.where(sel, E_obs, 0.0), prob.obs_point,
+                             P), group)
         contrib = torch.einsum("nab,ncb->nac", F, A[prob.obs_point])
-        cols.append(segment_sum(contrib, prob.obs_kf, K))
+        cols.append(psum(segment_sum(contrib, prob.obs_kf, K), group))
     S_blocks = -torch.stack(cols, dim=1)                 # (k, l, 6, 6)
     diag = torch.arange(K, device=dev)
     S_blocks[diag, diag] += B
     # reduced gradient: g_k = gc_k - sum_n [kf(n)=k] F_n gp_{p(n)}
-    g_red = gc - segment_sum(
-        torch.einsum("nab,nb->na", F, gp[prob.obs_point]), prob.obs_kf, K)
+    g_red = gc - psum(segment_sum(
+        torch.einsum("nab,nb->na", F, gp[prob.obs_point]), prob.obs_kf, K),
+        group)
 
     # gauge fixing: freeze the first num_fixed_poses keyframes
     fixed_rows = (torch.arange(K * 6, device=dev) // 6) < cfg.num_fixed_poses
@@ -206,9 +219,9 @@ def _gn_step(prob: BAProblem, cfg: BAConfig, lam: torch.Tensor):
 
     # back-substitute: dp_p = -C_p^-1 (gp_p + sum_{n: p(n)=p}
     # E_obs_n^T dx_{kf(n)})
-    Edx = segment_sum(torch.einsum("nab,na->nb", E_obs,
-                                    dx_poses[prob.obs_kf]),
-                       prob.obs_point, P)
+    Edx = psum(segment_sum(torch.einsum("nab,na->nb", E_obs,
+                                         dx_poses[prob.obs_kf]),
+                            prob.obs_point, P), group)
     dpoints = -torch.einsum("pij,pj->pi", Cinv, gp + Edx)
     return dx_poses, dpoints, cost
 
@@ -237,23 +250,27 @@ def _apply(prob: BAProblem, dx_poses: torch.Tensor, dpoints: torch.Tensor,
 
 
 @highest_precision()
-def _cost_only(prob: BAProblem, cfg: BAConfig) -> torch.Tensor:
+def _cost_only(prob: BAProblem, cfg: BAConfig, group=None) -> torch.Tensor:
     r, _, _, ok = reprojection_residuals(prob)
     w, rn = _huber_weights(r, ok, cfg)
-    return torch.sum(w * rn * rn)
+    return psum(torch.sum(w * rn * rn), group)
 
 
 @highest_precision()
-def bundle_adjust(prob: BAProblem, cfg: BAConfig = BAConfig()):
+def bundle_adjust(prob: BAProblem, cfg: BAConfig = BAConfig(), group=None):
     """Run LM-damped Schur GN for cfg.max_iterations trips. Returns
-    (problem, cost history (iters,)), the cost entering each trip."""
+    (problem, cost history (iters,)), the cost entering each trip.
+
+    `group`: a process group over which the observation axis is sharded
+    (each rank passes its block of observations; every reduction is
+    all-reduced, poses and points stay replicated)."""
     lam = torch.tensor(cfg.damping, dtype=prob.points.dtype,
                        device=prob.points.device)
     costs = []
     for _ in range(cfg.max_iterations):
-        dxp, dpt, cost = _gn_step(prob, cfg, lam)
+        dxp, dpt, cost = _gn_step(prob, cfg, lam, group)
         trial = _apply(prob, dxp, dpt, cfg)
-        accept = _cost_only(trial, cfg) < cost
+        accept = _cost_only(trial, cfg, group) < cost
         prob = prob.replace(
             T_world_kf=torch.where(accept, trial.T_world_kf, prob.T_world_kf),
             points=torch.where(accept, trial.points, prob.points))

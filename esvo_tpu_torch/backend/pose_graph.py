@@ -15,6 +15,10 @@ over the absolute poses {T_k}:
 - Levenberg-Marquardt with fixed trips and accept / reject damping, no
   host sync inside the loop.
 
+With a process group (``group=``) the edge axis is sharded over its
+ranks (parallel/sharding.py): H, g and every cost sum are all-reduced,
+JAX's psum sites; the poses stay replicated.
+
 Pose increments are left-multiplicative twists T_k <- exp(xi_k) T_k.
 """
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 
 from esvo_tpu_torch.geometry.se3 import (
     orthonormalize_rotation_fast, se3_exp, se3_inverse, se3_log)
-from esvo_tpu_torch.ops.linalg import segment_sum, solve_or_nan
+from esvo_tpu_torch.ops.linalg import psum, segment_sum, solve_or_nan
 from esvo_tpu_torch.utils.precision import highest_precision
 
 
@@ -99,23 +103,24 @@ def edge_residuals_and_jacobians(graph: PoseGraph):
 
 
 def _robust_weights_and_cost(r: torch.Tensor, graph: PoseGraph,
-                             cfg: PoseGraphConfig):
-    """Huber IRLS weights on the weighted residual norm + total cost."""
+                             cfg: PoseGraphConfig, group=None):
+    """Huber IRLS weights on the weighted residual norm + total cost
+    (summed over the ranks of `group`)."""
     rn = torch.linalg.vector_norm(r, dim=1)
     w = torch.where(rn > cfg.huber_threshold,
                     cfg.huber_threshold / torch.clamp(rn, min=1e-12), 1.0)
     w = torch.where(graph.edge_valid, w, 0.0)
-    return w, torch.sum(w * rn * rn)
+    return w, psum(torch.sum(w * rn * rn), group)
 
 
 @highest_precision()
-def _normal_equations(graph: PoseGraph, cfg: PoseGraphConfig):
+def _normal_equations(graph: PoseGraph, cfg: PoseGraphConfig, group=None):
     """Dense (6K, 6K) H, (6K,) g and the robust cost, assembled with one
-    flat scatter-add over edges."""
+    flat scatter-add over edges (all-reduced over `group`)."""
     K = graph.T_world.shape[0]
     dev = graph.T_world.device
     r, J = edge_residuals_and_jacobians(graph)
-    w, cost = _robust_weights_and_cost(r, graph, cfg)
+    w, cost = _robust_weights_and_cost(r, graph, cfg, group)
 
     wJ = J * w[:, None, None]
     JtJ = torch.einsum("eri,erj->eij", wJ, J)      # (E, 12, 12)
@@ -127,20 +132,21 @@ def _normal_equations(graph: PoseGraph, cfg: PoseGraphConfig):
                       graph.edge_j[:, None] * 6 + six], dim=1)   # int64
     n6 = 6 * K
     flat_idx = base[:, :, None] * n6 + base[:, None, :]   # (E, 12, 12)
-    H = segment_sum(JtJ.reshape(-1), flat_idx.reshape(-1),
-                    n6 * n6).reshape(n6, n6)
-    g = segment_sum(Jtr.reshape(-1), base.reshape(-1), n6)
+    H = psum(segment_sum(JtJ.reshape(-1), flat_idx.reshape(-1), n6 * n6),
+             group).reshape(n6, n6)
+    g = psum(segment_sum(Jtr.reshape(-1), base.reshape(-1), n6), group)
     return H, g, cost
 
 
 @highest_precision()
-def _cost_only(graph: PoseGraph, cfg: PoseGraphConfig) -> torch.Tensor:
+def _cost_only(graph: PoseGraph, cfg: PoseGraphConfig,
+               group=None) -> torch.Tensor:
     T_i = graph.T_world[graph.edge_i]
     T_j = graph.T_world[graph.edge_j]
     r = _edge_sqw(graph) * se3_log(
         torch.matmul(se3_inverse(graph.T_ij),
                      torch.matmul(se3_inverse(T_i), T_j)))
-    _, cost = _robust_weights_and_cost(r, graph, cfg)
+    _, cost = _robust_weights_and_cost(r, graph, cfg, group)
     return cost
 
 
@@ -161,10 +167,15 @@ def _apply(graph: PoseGraph, dx: torch.Tensor,
 
 @highest_precision()
 def optimize_pose_graph(graph: PoseGraph,
-                        cfg: PoseGraphConfig = PoseGraphConfig()):
+                        cfg: PoseGraphConfig = PoseGraphConfig(),
+                        group=None):
     """LM-damped Gauss-Newton over the pose graph. Returns (graph, cost
     history (iters + 1,)): the cost entering each trip, then the cost of
-    the returned graph."""
+    the returned graph.
+
+    `group`: a process group over which the edge axis is sharded (each
+    rank passes its block of edges; H, g and the costs are all-reduced,
+    the poses stay replicated)."""
     K = graph.T_world.shape[0]
     dt, dev = graph.T_world.dtype, graph.T_world.device
     fixed_rows = (torch.arange(6 * K, device=dev) // 6) < cfg.num_fixed_poses
@@ -172,7 +183,7 @@ def optimize_pose_graph(graph: PoseGraph,
     eye = torch.eye(6 * K, dtype=dt, device=dev)
     costs = []
     for _ in range(cfg.max_iterations):
-        H, g, cost = _normal_equations(graph, cfg)
+        H, g, cost = _normal_equations(graph, cfg, group)
         # LM damping + gauge prior on the fixed poses
         H = H + lam * torch.diag(torch.diag(H)) + 1e-10 * eye
         H = torch.where(fixed_rows[:, None] | fixed_rows[None, :], 0.0, H)
@@ -180,13 +191,13 @@ def optimize_pose_graph(graph: PoseGraph,
         g = torch.where(fixed_rows, 0.0, g)
         dx = -solve_or_nan(H, g)
         trial = _apply(graph, dx, cfg)
-        accept = _cost_only(trial, cfg) < cost
+        accept = _cost_only(trial, cfg, group) < cost
         graph = graph.replace(T_world=torch.where(accept, trial.T_world,
                                                   graph.T_world))
         lam = torch.clamp(torch.where(accept, lam * 0.3, lam * 5.0),
                           1e-12, 1e3)
         costs.append(cost)
-    costs.append(_cost_only(graph, cfg))
+    costs.append(_cost_only(graph, cfg, group))
     return graph, torch.stack(costs)
 
 

@@ -1,11 +1,18 @@
 """Stereo block matching over time surfaces
-(port of esvo_tpu/mapping/block_matching.py, its "slice" strategy).
+(port of esvo_tpu/mapping/block_matching.py).
 
 Every event evaluates every disparity: the ZNCC cost of each pixel and
 disparity comes from separable box sums over the dense surfaces, and each
-event's D costs are gathered plane by plane inside the disparity loop, so
-the (H, W, D) cube is never materialized. All sums are f32 slice-adds in
-the JAX package's order; no matrix product (and so no TF32) is involved.
+event's D costs are gathered inside the disparity loop, so the (H, W, D)
+cube is never materialized. Two cost strategies, as in the JAX package:
+
+- "slice" (and "auto", on either device): one disparity plane at a
+  time, every box sum as f32 slice-adds in the JAX package's order; no
+  matrix product (and so no TF32) is involved;
+- "matmul": C disparities at a time, the horizontal box of the
+  left-right product as one product with the banded-ones matrix Bx, in
+  full float32 (``highest_precision``). Its argmin equals the slice
+  path's; its costs agree to float32 rounding.
 """
 from __future__ import annotations
 
@@ -18,6 +25,9 @@ import torch.nn.functional as F
 from esvo_tpu_torch.geometry.camera import StereoRig
 from esvo_tpu_torch.ops.interp import gather2d
 from esvo_tpu_torch.surface.time_surface import gaussian_blur
+from esvo_tpu_torch.utils.precision import highest_precision
+
+COST_STRATEGIES = ("auto", "slice", "matmul")
 
 
 @dataclass(frozen=True)
@@ -33,7 +43,8 @@ class BlockMatchConfig:
     # both neighbours of the minimum must be valid candidates; like the
     # reference, only applied when step > 1
     check_local_minimum: bool = True
-    # "slice" (the only strategy of the port) or "auto" (= "slice")
+    # "slice", "matmul", or "auto" (= "slice": JAX picks "matmul" only
+    # on a TPU)
     cost_strategy: str = "auto"
 
 
@@ -107,6 +118,74 @@ def _box(img: torch.Tensor, hy: int, hx: int) -> torch.Tensor:
     return out
 
 
+def _volume_slice(ts_left, ts_right, S_r, S_r2, m_l, sigma_l, flat,
+                  dmin: int, dmax: int, hy: int, hx: int) -> torch.Tensor:
+    """(N, D) event costs, one disparity plane at a time."""
+    H, W = ts_left.shape
+    P_area = (2 * hy + 1) * (2 * hx + 1)
+    pad_r = F.pad(ts_right, (dmax, 0))
+    pad_Sr = F.pad(S_r, (dmax, 0))
+    pad_Sr2 = F.pad(S_r2, (dmax, 0))
+    planes = []
+    for d in range(dmin, dmax + 1):
+        o = dmax - d
+
+        def sl(p):
+            return p[:, o:o + W]
+
+        m_r = sl(pad_Sr) / P_area
+        sigma_r = torch.sqrt(torch.clamp(sl(pad_Sr2) / P_area - m_r * m_r,
+                                         min=0.0)) + 1e-6
+        S_lr = _box(ts_left * sl(pad_r), hy, hx)
+        ncc = (S_lr / P_area - m_l * m_r) / (sigma_l * sigma_r)
+        cost = 0.5 * (1.0 - ncc)
+        planes.append(cost.reshape(-1)[flat])                 # (N,)
+    return torch.stack(planes, dim=1)
+
+
+@highest_precision()
+def _volume_matmul(ts_left, ts_right, S_r, S_r2, m_l, sigma_l, flat,
+                   dmin: int, dmax: int, hy: int, hx: int) -> torch.Tensor:
+    """(N, D) event costs, C = min(8, D) disparities at a time: the
+    vertical box of each chunk's left-right products as slice-adds, the
+    horizontal one as a product with Bx[w, x] = (|w - x| <= hx), the
+    JAX package's zero-padding semantics."""
+    H, W = ts_left.shape
+    P_area = (2 * hy + 1) * (2 * hx + 1)
+    D = dmax - dmin + 1
+    C = min(8, D)
+    lead = dmax + C - 1
+    pad_r = F.pad(ts_right, (lead, 0))
+    pad_Sr = F.pad(S_r, (lead, 0))
+    pad_Sr2 = F.pad(S_r2, (lead, 0))
+    cols = torch.arange(W, device=ts_left.device)
+    Bx = (torch.abs(cols[:, None] - cols[None, :]) <= hx).to(ts_left.dtype)
+    # disparity d0 + j of a chunk sits at column offset C - 1 - j of the
+    # chunk's (H, W + C - 1) strip, which starts at column dmax - d0
+    j = torch.arange(C, device=ts_left.device)
+
+    def stack(p, d0):
+        o = dmax - d0 + C - 1 - j                             # (C,)
+        idx = o[:, None] + cols[None, :]                      # (C, W)
+        return p[:, idx].permute(1, 0, 2)                     # (C, H, W)
+
+    chunks = []
+    for d0 in range(dmin, dmin + D, C):
+        prod = ts_left[None] * stack(pad_r, d0)
+        q = F.pad(prod, (0, 0, hy, hy))
+        vbox = torch.zeros_like(prod)
+        for dy in range(2 * hy + 1):
+            vbox = vbox + q[:, dy:dy + H]
+        S_lr = torch.matmul(vbox, Bx)                         # (C, H, W)
+        m_r = stack(pad_Sr, d0) / P_area
+        sigma_r = torch.sqrt(torch.clamp(stack(pad_Sr2, d0) / P_area
+                                         - m_r * m_r, min=0.0)) + 1e-6
+        ncc = (S_lr / P_area - m_l[None] * m_r) / (sigma_l[None] * sigma_r)
+        cost = 0.5 * (1.0 - ncc)
+        chunks.append(cost.reshape(C, -1)[:, flat])           # (C, N)
+    return torch.cat(chunks)[:D].T
+
+
 def _match_horizontal(ts_left, ts_right, x_rect, t, valid, mask, rig, cfg,
                       swap_patch: bool):
     H, W = ts_left.shape
@@ -114,9 +193,10 @@ def _match_horizontal(ts_left, ts_right, x_rect, t, valid, mask, rig, cfg,
     wy = cfg.patch_size_x if swap_patch else cfg.patch_size_y
     hx, hy = (wx - 1) // 2, (wy - 1) // 2
     dmin, dmax = cfg.min_disparity, cfg.max_disparity
-    if cfg.cost_strategy not in ("slice", "auto"):
-        raise NotImplementedError(
-            f"cost_strategy {cfg.cost_strategy!r}: the port has 'slice'")
+    if cfg.cost_strategy not in COST_STRATEGIES:
+        raise ValueError(
+            f"unknown cost_strategy {cfg.cost_strategy!r} "
+            "(expected 'slice', 'matmul', or 'auto')")
     ts_left = ts_left.contiguous()
     ts_right = ts_right.contiguous()
     if cfg.smooth_time_surface:
@@ -143,24 +223,10 @@ def _match_horizontal(ts_left, ts_right, x_rect, t, valid, mask, rig, cfg,
     dark_l = _box((ts_left < 1.0).to(ts_left.dtype), hy, hx)
 
     flat = vi * W + ui
-    pad_r = F.pad(ts_right, (dmax, 0))
-    pad_Sr = F.pad(S_r, (dmax, 0))
-    pad_Sr2 = F.pad(S_r2, (dmax, 0))
-    planes = []
-    for d in range(dmin, dmax + 1):
-        o = dmax - d
-
-        def sl(p):
-            return p[:, o:o + W]
-
-        m_r = sl(pad_Sr) / P_area
-        sigma_r = torch.sqrt(torch.clamp(sl(pad_Sr2) / P_area - m_r * m_r,
-                                         min=0.0)) + 1e-6
-        S_lr = _box(ts_left * sl(pad_r), hy, hx)
-        ncc = (S_lr / P_area - m_l * m_r) / (sigma_l * sigma_r)
-        cost = 0.5 * (1.0 - ncc)
-        planes.append(cost.reshape(-1)[flat])                 # (N,)
-    cost_vol = torch.stack(planes, dim=1)                     # (N, D)
+    volume = _volume_matmul if cfg.cost_strategy == "matmul" \
+        else _volume_slice
+    cost_vol = volume(ts_left, ts_right, S_r, S_r2, m_l, sigma_l, flat,
+                      dmin, dmax, hy, hx)                     # (N, D)
     dark = dark_l.reshape(-1)[flat]
     noise_low = inb & (dark > 0.95 * P_area)
     inb = inb & ~noise_low

@@ -1,11 +1,18 @@
 """Per-event inverse-depth refinement — batched 1-DoF Levenberg-Marquardt
-(port of esvo_tpu/mapping/depth_refinement.py, its windowed path).
+(port of esvo_tpu/mapping/depth_refinement.py).
 
 Each event gets one (patch + 2*margin) window per surface, cut at its
-initial warp positions (kernel K1 on the card); the whole LM solve then
-runs on those windows (kernel K2 on the card, its plain twin on the CPU).
-The JAX package's unwindowed fallback and its ``zncc`` norm are not
-ported: no preset uses them, and they raise NotImplementedError.
+initial warp positions (kernel K1 on the card). Two LM paths run on those
+windows, dispatched as the JAX package dispatches them:
+
+- float32 Tdist / l2 with ``lm_kernel`` "auto" or "pallas": the fused
+  solve, kernel K2 on the card and its plain twin on the CPU;
+- ``lm_kernel="xla"``, the ``zncc`` norm or any other dtype: the JAX
+  package's masked LM scan in plain PyTorch, each trial's residuals and
+  their depth derivative from one ``torch.func.jvp``.
+
+Where the window does not fit the image (or ``window_margin < 0``) the
+scan samples every patch from the full surfaces instead.
 """
 from __future__ import annotations
 
@@ -16,8 +23,11 @@ import torch
 
 from esvo_tpu_torch.geometry.camera import StereoRig, cam_to_world, inv3
 from esvo_tpu_torch.geometry.se3 import rows_apply, rows_from_matrices
-from esvo_tpu_torch.ops.interp import slice_patches_pair
-from esvo_tpu_torch.ops.lm import lm_solve
+from esvo_tpu_torch.ops.interp import slice_patches, slice_patches_pair
+from esvo_tpu_torch.ops.lm import lm_solve, tdist_weights
+
+LS_NORMS = ("l2", "zncc", "Tdist")
+LM_KERNELS = ("auto", "pallas", "xla")
 
 
 @dataclass(frozen=True)
@@ -33,9 +43,10 @@ class DepthProblemConfig:
     regularization_min_neighbours: int = 8
     regularization_min_close_neighbours: int = 8
     td_fixed_point_iters: int = 10
+    # < 0 samples every LM patch from the full surfaces (no windows)
     window_margin: int = 8
-    # kept for field parity with the JAX config; the port has one LM
-    # path (kernel K2 on CUDA tensors, its twin on CPU tensors)
+    # "auto" / "pallas": kernel K2 (its twin on the CPU) for float32
+    # Tdist / l2, the scan otherwise; "xla": always the scan
     lm_kernel: str = "auto"
 
     @property
@@ -97,6 +108,11 @@ def _warp_positions_rows(d, u, v, rows_lv, P_left, P_right, Ainv):
     return u1, v1, u2, v2
 
 
+def _window_shape(cfg: DepthProblemConfig) -> tuple[int, int]:
+    mg = cfg.window_margin
+    return (cfg.patch_size_y + 1 + 2 * mg, cfg.patch_size_x + 1 + 2 * mg)
+
+
 def window_problem(matches_x, T_left_virtual, d_init, ts_left, ts_right,
                    rig: StereoRig, cfg: DepthProblemConfig):
     """The arguments of ops.lm.lm_solve for N events: one (patch +
@@ -108,13 +124,7 @@ def window_problem(matches_x, T_left_virtual, d_init, ts_left, ts_right,
     P_right = rig.right.params.P
     wy, wx = cfg.patch_size_y, cfg.patch_size_x
     mg = cfg.window_margin
-    Wy, Wx = wy + 1 + 2 * mg, wx + 1 + 2 * mg
-    if cfg.ls_norm not in ("Tdist", "l2"):
-        raise NotImplementedError(f"ls_norm {cfg.ls_norm!r} is not ported")
-    if not (mg >= 0 and H >= Wy and W >= Wx):
-        raise NotImplementedError(
-            "the unwindowed depth solve (window_margin < 0 or an image "
-            "smaller than the window) is not ported")
+    Wy, Wx = _window_shape(cfg)
     rows_lv = rows_from_matrices(T_left_virtual).contiguous()   # (12, N)
     Ainv = inv3(P_left[:, :3])
     u_ev = matches_x[:, 0].contiguous()
@@ -150,14 +160,208 @@ def solve(matches_x, T_world_virtual, T_left_virtual, d_init, valid,
 
     matches_x (N, 2) rectified left coordinates; T_world_virtual and
     T_left_virtual (N, 4, 4); d_init (N,) inverse depth from block
-    matching; valid (N,); ts_left/ts_right (H, W) surfaces. The LM
-    starts from max(d_init, 1e-6), as the TPU kernel does."""
+    matching; valid (N,); ts_left/ts_right (H, W) surfaces. Kernel K2
+    (or its twin) starts from max(d_init, 1e-6), as the TPU kernel does;
+    the scan starts from d_init, as the JAX package's scan does."""
     del t_event
-    args, kwargs = window_problem(matches_x, T_left_virtual, d_init,
-                                  ts_left, ts_right, rig, cfg)
-    d, cost, jtj = lm_solve(*args, **kwargs)
+    if cfg.ls_norm not in LS_NORMS:
+        raise ValueError(f"unsupported LSnorm: {cfg.ls_norm}")
+    if cfg.lm_kernel not in LM_KERNELS:
+        raise ValueError(f"unknown lm_kernel {cfg.lm_kernel!r} (expected "
+                         f"one of {LM_KERNELS})")
+    H, W = ts_left.shape
+    Wy, Wx = _window_shape(cfg)
+    if cfg.window_margin >= 0 and H >= Wy and W >= Wx:
+        args, kwargs = window_problem(matches_x, T_left_virtual, d_init,
+                                      ts_left, ts_right, rig, cfg)
+        if (cfg.lm_kernel != "xla" and cfg.ls_norm in ("Tdist", "l2")
+                and ts_left.dtype == torch.float32):
+            d, cost, jtj = lm_solve(*args, **kwargs)
+        else:
+            d, cost, jtj = _lm_scan(
+                args[5], *_window_sampler(*args, H, W, cfg), cfg)
+    else:
+        d, cost, jtj = _lm_scan(
+            d_init.to(ts_left.dtype),
+            *_direct_sampler(matches_x, T_left_virtual, ts_left, ts_right,
+                             rig, cfg), cfg)
     return _finalize(d, cost, jtj, matches_x, T_world_virtual, valid,
                      rig.left.params.P, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the LM scan (the JAX package's XLA path: zncc, lm_kernel="xla", float64,
+# and the unwindowed fallback)
+# ---------------------------------------------------------------------------
+
+def _apply_norm(tau1, tau2, ok, cfg: DepthProblemConfig):
+    """fvec (N, P) from the two sampled patches (N, wy, wx) under
+    cfg.ls_norm, with the out-of-bounds sentinel residual 255
+    (DepthProblem.cpp:44-59, 126-158)."""
+    P = cfg.patch_area
+    n = tau1.shape[0]
+    r_raw = (tau1 - tau2).reshape(n, P)
+    okx = ok[:, None]
+    r = torch.where(okx, r_raw, 255.0)
+    if cfg.ls_norm == "l2":
+        return r
+    if cfg.ls_norm == "zncc":
+        mu1 = tau1.mean(dim=(-2, -1), keepdim=True)
+        mu2 = tau2.mean(dim=(-2, -1), keepdim=True)
+        s1 = torch.sqrt(((tau1 - mu1) ** 2).mean(dim=(-2, -1),
+                                                 keepdim=True)) + 1e-6
+        s2 = torch.sqrt(((tau2 - mu2) ** 2).mean(dim=(-2, -1),
+                                                 keepdim=True)) + 1e-6
+        z = ((tau1 - mu1) / s1 - (tau2 - mu2) / s2).reshape(n, P) \
+            / math.sqrt(P)
+        return torch.where(okx, z, 2.0 / math.sqrt(P))
+    nu = cfg.td_nu
+    w_oob = (nu + 1.0) / (nu + (255.0 / cfg.td_scale) ** 2)
+    # detached: the LM differentiates sqrt(w) * r with the weights frozen,
+    # as JAX's stop_gradient does
+    w_valid = tdist_weights(r_raw.detach(), nu, cfg.td_scale_squared,
+                            cfg.td_fixed_point_iters)
+    return torch.sqrt(torch.where(okx, w_valid, w_oob)) * r
+
+
+def _blend(src, u, v, wy: int, wx: int):
+    """The bilinear (wy, wx) patch at fractions (u - floor u, v - floor v)
+    of each event's integer-aligned (wy+1, wx+1) source block."""
+    fx = (u - torch.floor(u))[:, None, None]
+    fy = (v - torch.floor(v))[:, None, None]
+    r = (1.0 - fx) * src[:, :, :wx] + fx * src[:, :, 1:]
+    return (1.0 - fy) * r[:, :wy] + fy * r[:, 1:]
+
+
+def _warp_in_bounds(u1, v1, u2, v2, W: int, H: int,
+                    cfg: DepthProblemConfig):
+    """Both warped centres leave room for the patch."""
+    bx = (cfg.patch_size_x - 1) // 2
+    by = (cfg.patch_size_y - 1) // 2
+    return ((u1 >= bx) & (u1 <= W - bx) & (v1 >= by) & (v1 <= H - by)
+            & (u2 >= bx) & (u2 <= W - bx) & (v2 >= by) & (v2 <= H - by))
+
+
+def _window_sampler(P_left, P_right, Ainv, u_ev, v_ev, d_init, oy1, ox1,
+                    oy2, ox2, rows_lv, win1, win2, H: int, W: int,
+                    cfg: DepthProblemConfig):
+    """(warp, sources) of the windowed scan: the warp in the pose-rows
+    layout, and each event's source blocks gathered from its windows
+    (JAX's ``_window_patch``; a source block past the window is out of
+    bounds). sources(u1, v1, u2, v2) -> (src1, src2, ok)."""
+    wy, wx = cfg.patch_size_y, cfg.patch_size_x
+    N, Wy, Wx = win1.shape
+    dev = win1.device
+    jy = torch.arange(wy + 1, device=dev)[None, :, None]
+    jx = torch.arange(wx + 1, device=dev)[None, None, :]
+    n = torch.arange(N, device=dev)[:, None, None]
+
+    def warp(d):
+        return _warp_positions_rows(d, u_ev, v_ev, rows_lv, P_left,
+                                    P_right, Ainv)
+
+    def source(win, oy, ox, u, v):
+        ry = torch.floor(v).long() - (wy - 1) // 2 - oy.long()
+        rx = torch.floor(u).long() - (wx - 1) // 2 - ox.long()
+        ok = (ry >= 0) & (rx >= 0) & (ry + wy + 1 <= Wy) \
+            & (rx + wx + 1 <= Wx)
+        ry = torch.clamp(ry, 0, Wy - wy - 1)[:, None, None]
+        rx = torch.clamp(rx, 0, Wx - wx - 1)[:, None, None]
+        return win[n, ry + jy, rx + jx], ok
+
+    def sources(u1, v1, u2, v2):
+        src1, ok1 = source(win1, oy1, ox1, u1, v1)
+        src2, ok2 = source(win2, oy2, ox2, u2, v2)
+        return src1, src2, (_warp_in_bounds(u1, v1, u2, v2, W, H, cfg)
+                            & ok1 & ok2)
+
+    return warp, sources
+
+
+def _direct_sampler(matches_x, T_left_virtual, ts_left, ts_right,
+                    rig: StereoRig, cfg: DepthProblemConfig):
+    """(warp, sources) of the unwindowed scan: the warp through the
+    per-event matrices, and each event's source blocks cut from the full
+    surfaces (kernel K1 on the card where it takes the block) with the
+    reference's patchInterpolation bounds."""
+    wy, wx = cfg.patch_size_y, cfg.patch_size_x
+    H, W = ts_left.shape
+    P_left, P_right = rig.left.params.P, rig.right.params.P
+    R = T_left_virtual[:, :3, :3]
+    t = T_left_virtual[:, :3, 3]
+
+    def warp(d):
+        p_rv = cam_to_world(P_left, matches_x.to(d.dtype), d)
+        p_left = torch.einsum("nij,nj->ni", R, p_rv) + t
+        x1 = torch.einsum("ij,nj->ni", P_left[:, :3], p_left) + P_left[:, 3]
+        x2 = torch.einsum("ij,nj->ni", P_right[:, :3], p_left) \
+            + P_right[:, 3]
+        return (x1[:, 0] / x1[:, 2], x1[:, 1] / x1[:, 2],
+                x2[:, 0] / x2[:, 2], x2[:, 1] / x2[:, 2])
+
+    def source(img, u, v):
+        ul_x = torch.floor(u).to(torch.int32) - (wx - 1) // 2
+        ul_y = torch.floor(v).to(torch.int32) - (wy - 1) // 2
+        ok = (ul_x >= 0) & (ul_y >= 0) & (ul_x + wx < W) & (ul_y + wy < H)
+        return slice_patches(img, ul_y, ul_x, wy + 1, wx + 1), ok
+
+    def sources(u1, v1, u2, v2):
+        src1, ok1 = source(ts_left, u1, v1)
+        src2, ok2 = source(ts_right, u2, v2)
+        return src1, src2, (_warp_in_bounds(u1, v1, u2, v2, W, H, cfg)
+                            & ok1 & ok2)
+
+    return warp, sources
+
+
+def _lm_scan(d_init, warp, sources, cfg: DepthProblemConfig):
+    """The JAX package's masked LM scan (cfg.max_iteration damped steps
+    with per-event accept / reject and the two-strike freeze). Returns
+    (d, cost, jtj), each (N,).
+
+    Each evaluation cuts the events' source blocks at the primal warp
+    positions, outside the differentiated function: their integer
+    starts carry no tangent (as under jax.jvp), so the derivative flows
+    through the bilinear fractions alone, and a kernel never sees a
+    forward-mode tensor."""
+    wy, wx = cfg.patch_size_y, cfg.patch_size_x
+
+    def evaluate(d):
+        src1, src2, ok = sources(*warp(d))
+
+        def fvec(dd):
+            u1, v1, u2, v2 = warp(dd)
+            return _apply_norm(_blend(src1, u1, v1, wy, wx),
+                               _blend(src2, u2, v2, wy, wx), ok, cfg)
+
+        f, jac = torch.func.jvp(fvec, (d,), (torch.ones_like(d),))
+        return f, jac, (f * f).sum(-1)
+
+    d = d_init
+    lam = torch.full_like(d, 1e-3)
+    strikes = torch.zeros_like(d, dtype=torch.int32)
+    f, jac, cost = evaluate(d)
+    for _ in range(cfg.max_iteration):
+        g = (jac * f).sum(-1)
+        h = (jac * jac).sum(-1)
+        delta = -g / (h * (1.0 + lam) + 1e-12)
+        d_try = d + delta
+        f_try, jac_try, cost_try = evaluate(d_try)
+        accept = cost_try < cost
+        frozen = strikes >= 2
+        do = accept & ~frozen
+        small = (torch.abs(cost - cost_try) <= 1e-6 * cost) \
+            | (torch.abs(delta) <= 1e-6 * (torch.abs(d) + 1e-6))
+        strikes = torch.where(frozen, strikes,
+                              torch.where(small, strikes + 1, 0))
+        d = torch.where(do, d_try, d)
+        f = torch.where(do[:, None], f_try, f)
+        jac = torch.where(do[:, None], jac_try, jac)
+        cost = torch.where(do, cost_try, cost)
+        lam = torch.where(frozen, lam,
+                          torch.where(accept, lam * 0.3, lam * 4.0))
+        lam = torch.clamp(lam, 1e-9, 1e9)
+    return d, cost, (jac * jac).sum(-1)
 
 
 def _finalize(d, cost, jtj, matches_x, T_world_virtual, valid, P_left,

@@ -1,5 +1,6 @@
-"""Small linear solves (port of esvo_tpu/ops/linalg.py, and the LU solve
-and the segment sums of the backend's normal equations).
+"""Small linear solves (port of esvo_tpu/ops/linalg.py, and the LU solve,
+the segment sums and their cross-rank sum of the backend's normal
+equations).
 
 The tracker solves one 6x6 normal equation per LM round. The JAX package
 unrolls the Cholesky factorization into scalar ops so that XLA fuses it
@@ -11,6 +12,7 @@ a handful of launches on either device.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 
 def solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -53,3 +55,12 @@ def segment_sum(values: torch.Tensor, index: torch.Tensor,
     if values.is_cuda:
         return out.index_put_((index,), values, accumulate=True)
     return out.index_add_(0, index, values)
+
+
+def psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """x summed over the ranks of the process group `group`, in place
+    (``all_reduce``; JAX's ``lax.psum`` over a mesh axis); x itself
+    without a group."""
+    if group is not None:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x

@@ -163,6 +163,30 @@ def _sample(win, oy, ox, u, v, du, dv, wy, wx):
     return patch.reshape(N, -1), jac.reshape(N, -1), ok
 
 
+def tdist_weights(r: torch.Tensor, nu: float, scale2_init: float,
+                  iters: int) -> torch.Tensor:
+    """Student-t IRLS weights (..., P) of residuals r (..., P): the scale
+    fixed point scale2 <- mean(r^2 (nu + 1) / (nu + r^2 / scale2)), zeros
+    left out of the sum but not the mean, `iters` trips with a 5%
+    freeze mask, reset to scale2_init where degenerate
+    (DepthProblem.cpp:88-135; pallas_lm.py's and the JAX scan's)."""
+    r2 = r * r
+    P = r.shape[-1]
+    nonzero = r != 0.0
+    s2 = torch.full(r.shape[:-1], scale2_init, dtype=r.dtype,
+                    device=r.device)
+    done = torch.zeros(r.shape[:-1], dtype=torch.bool, device=r.device)
+    for _ in range(iters):
+        c = r2 * (nu + 1.0) / (nu + r2 / s2[..., None])
+        s2_new = torch.where(nonzero, c, 0.0).sum(-1) / P
+        degenerate = s2_new == 0.0
+        s2_new = torch.where(degenerate, scale2_init, s2_new)
+        conv = torch.abs(s2_new - s2) / torch.clamp(s2, min=1e-30) <= 0.05
+        s2 = torch.where(done, s2, s2_new)
+        done = done | conv | degenerate
+    return (nu + 1.0) / (nu + r2 / s2[..., None])
+
+
 def lm_solve_plain(P_left, P_right, Ainv, u_ev, v_ev, d_init, oy1, ox1,
                    oy2, ox2, rows_lv, win1, win2, *, wy: int, wx: int,
                    Wy: int, Wx: int, H: int, W: int, ls_norm: str,
@@ -177,7 +201,6 @@ def lm_solve_plain(P_left, P_right, Ainv, u_ev, v_ev, d_init, oy1, ox1,
     win1, win2 = win1.to(f32), win2.to(f32)
     oy1, ox1, oy2, ox2 = (o.to(torch.int64) for o in (oy1, ox1, oy2, ox2))
     hy, hx = (wy - 1) // 2, (wx - 1) // 2
-    P = wy * wx
     cl, cr = _warp_coeffs(P_left, P_right, Ainv, u_ev, v_ev, rows)
     w_oob = (nu + 1.0) / (nu + (255.0 / math.sqrt(scale2_init)) ** 2)
 
@@ -201,23 +224,7 @@ def lm_solve_plain(P_left, P_right, Ainv, u_ev, v_ev, d_init, oy1, ox1,
             f = r
             jac = torch.where(okx, dr, torch.zeros_like(dr))
         else:
-            r2 = r_raw * r_raw
-            nonzero = r_raw != 0.0
-            s2 = torch.full_like(d, scale2_init)
-            done = torch.zeros_like(d, dtype=torch.bool)
-            for _ in range(td_iters):
-                c = r2 * (nu + 1.0) / (nu + r2 / s2[:, None])
-                s2_new = torch.where(nonzero, c,
-                                     torch.zeros_like(c)).sum(1) / P
-                degenerate = s2_new == 0.0
-                s2_new = torch.where(degenerate,
-                                     torch.full_like(s2_new, scale2_init),
-                                     s2_new)
-                conv = torch.abs(s2_new - s2) / torch.clamp(s2, min=1e-30) \
-                    <= 0.05
-                s2 = torch.where(done, s2, s2_new)
-                done = done | conv | degenerate
-            w = (nu + 1.0) / (nu + r2 / s2[:, None])
+            w = tdist_weights(r_raw, nu, scale2_init, td_iters)
             sq = torch.sqrt(torch.where(okx, w, torch.full_like(w, w_oob)))
             f = sq * r
             jac = torch.where(okx, sq * dr, torch.zeros_like(dr))
@@ -272,7 +279,9 @@ def lm_solve(P_left, P_right, Ainv, u_ev, v_ev, d_init, oy1, ox1, oy2, ox2,
         return lm_solve_plain(P_left, P_right, Ainv, u_ev, v_ev, d_init,
                               oy1, ox1, oy2, ox2, rows_lv, win1, win2, **kw)
     if ls_norm not in ("Tdist", "l2"):
-        raise NotImplementedError(f"LM kernel: ls_norm {ls_norm!r}")
+        raise ValueError(f"kernel K2 takes ls_norm Tdist or l2, not "
+                         f"{ls_norm!r} (depth_refinement.solve runs the "
+                         "scan for it)")
     N = u_ev.shape[0]
     f32 = torch.float32
     P_left, P_right, Ainv = (m.to(f32).contiguous()

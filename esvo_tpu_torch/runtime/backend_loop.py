@@ -24,6 +24,7 @@ import numpy as np
 
 from esvo_tpu_torch.backend.bundle_adjustment import BAConfig, bundle_adjust
 from esvo_tpu_torch.backend.keyframes import KeyframeGraph, build_ba_problem
+from esvo_tpu_torch.parallel import sharding as ps
 from esvo_tpu_torch.runtime.system import EsvoSystem, SystemStatus
 
 
@@ -32,11 +33,10 @@ class BackendLoop:
                  window: int = 6, max_points_per_kf: int = 400,
                  ba_config: BAConfig | None = None,
                  voxel_size: float = 0.05, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "BackendLoop(mesh=...): the BA sharded over a device mesh "
-                "(parallel/sharding.py, ROADMAP Queue 1 item 6) is not "
-                "ported yet")
+        """mesh: a 1-D DeviceMesh of SPMD ranks (parallel/sharding.py):
+        BA then runs through sharded_bundle_adjust with the observation
+        axis sharded (all-reduced Schur assembly)."""
+        self.mesh = None if mesh is None else ps.check_mesh(mesh)
         self.system = system
         self.keyframe_every = keyframe_every
         self.window = window
@@ -129,7 +129,11 @@ class BackendLoop:
             return None
         prob = build_ba_problem(graph, max_points=2000, dtype=sys.dtype,
                                 device=sys.device)
-        prob, costs = bundle_adjust(prob, self.ba_cfg)
+        if self.mesh is not None:
+            prob, costs = ps.sharded_bundle_adjust(self.mesh, self.ba_cfg)(
+                ps.pad_observations(self.mesh, prob))
+        else:
+            prob, costs = bundle_adjust(prob, self.ba_cfg)
         self.num_ba_runs += 1
 
         # fold the newest keyframe's correction into the live state (all

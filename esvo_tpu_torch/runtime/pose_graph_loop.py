@@ -27,6 +27,7 @@ import torch
 
 from esvo_tpu_torch.backend import loop_closure as lc
 from esvo_tpu_torch.backend import pose_graph as pg
+from esvo_tpu_torch.parallel import sharding as ps
 from esvo_tpu_torch.runtime.system import EsvoSystem, SystemStatus
 from esvo_tpu_torch.tracking import registration as reg
 
@@ -43,11 +44,14 @@ class PoseGraphLoop:
                  reg_config: reg.RegProblemConfig | None = None,
                  odom_w_rot: float = 100.0, odom_w_trans: float = 100.0,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "PoseGraphLoop(mesh=...): the pose graph sharded over a "
-                "device mesh (parallel/sharding.py, ROADMAP Queue 1 item "
-                "6) is not ported yet")
+        """mesh: a 1-D DeviceMesh of SPMD ranks (parallel/sharding.py):
+        the pose-graph LM then runs through sharded_pose_graph with the
+        edge axis sharded; edge buckets are multiples of 64, so the mesh
+        size must divide 64."""
+        self.mesh = None if mesh is None else ps.check_mesh(mesh)
+        if self.mesh is not None and 64 % self.mesh.size():
+            raise ValueError(f"mesh size {self.mesh.size()} must divide the "
+                             "64-edge bucket")
         self.system = system
         self.device = getattr(system, "device", None)
         self.keyframe_every = keyframe_every
@@ -148,7 +152,11 @@ class PoseGraphLoop:
             edge_j=torch.as_tensor(ej, device=dev), T_ij=f(T_ij),
             w_rot=f(w_rot), w_trans=f(w_trans),
             edge_valid=torch.as_tensor(valid, device=dev))
-        graph, costs = pg.optimize_pose_graph(graph, self.pg_cfg)
+        if self.mesh is not None:
+            graph, costs = ps.sharded_pose_graph(self.mesh, self.pg_cfg)(
+                graph)
+        else:
+            graph, costs = pg.optimize_pose_graph(graph, self.pg_cfg)
         self.num_optimizations += 1
 
         T_opt = graph.T_world.cpu().double().numpy()

@@ -225,6 +225,10 @@ class ResidentLoop:
 
     def __init__(self, system: EsvoSystem, ticks_per_roll: int,
                  rolls_per_dispatch: int, pose_table_size: int = 256):
+        if getattr(system, "mesh", None) is not None:
+            raise NotImplementedError(
+                "resident loop currently targets a single chip; use the "
+                "host roll path with mesh sharding")
         self.system = system
         self.K = int(ticks_per_roll)
         self.R = int(rolls_per_dispatch)

@@ -54,6 +54,7 @@ from esvo_tpu_torch.mapping import fusion as fu
 from esvo_tpu_torch.mapping import initialization as init
 from esvo_tpu_torch.mapping.regularization import regularize
 from esvo_tpu_torch.ops.interp import gather2d
+from esvo_tpu_torch.parallel import sharding as ps
 from esvo_tpu_torch.runtime.config import SystemConfig
 from esvo_tpu_torch.surface import time_surface as tsf
 from esvo_tpu_torch.tracking import registration as reg
@@ -67,9 +68,12 @@ class MappingCycle(nn.Module):
     """One stereo rig's mapping programs with its fusion window."""
 
     def __init__(self, rig: StereoRig, cfg: SystemConfig | None = None,
-                 device=None):
+                 device=None, mesh=None):
         super().__init__()
         self.cfg = cfg or SystemConfig()
+        # a DeviceMesh shards the inserts and the depth solve over its
+        # ranks (parallel/sharding.py)
+        self.mesh = mesh
         dev = resolve_device(device)
         self._meta = {}
         for side in ("left", "right"):
@@ -156,9 +160,19 @@ class MappingCycle(nn.Module):
                     ev_r: tsf.EventBatch, t_sync):
         """Insert one tick's events, render both surfaces. Returns
         (st_l, st_r, surface_left, surface_right)."""
-        st_l = tsf.insert_events(st_l, ev_l)
-        st_r = tsf.insert_events(st_r, ev_r)
+        st_l = self.insert(st_l, ev_l)
+        st_r = self.insert(st_r, ev_r)
         return (st_l, st_r) + tuple(self.render_pair(st_l, st_r, t_sync))
+
+    def insert(self, st: tsf.TimeSurfaceState,
+               ev: tsf.EventBatch) -> tsf.TimeSurfaceState:
+        """insert_events; with a mesh the frame is padded to a mesh
+        multiple (valid=False lanes) and each rank scatters its block
+        (sharded_surface_update: the same grids bit for bit)."""
+        if self.mesh is None:
+            return tsf.insert_events(st, ev)
+        return ps.sharded_surface_update(self.mesh, st,
+                                         ps.pad_events(self.mesh, ev))
 
     # -- the mapping programs ------------------------------------------------
     def compact(self, valid: torch.Tensor, *arrays):
@@ -196,8 +210,13 @@ class MappingCycle(nn.Module):
             ts_l, ts_r, x_rect, x_rect, ev_t, ev_valid, rig.left.mask, rig,
             cfg.bm)
         T_lv = torch.matmul(se3_inverse(T_world_frame), T_wv)
-        est = dr.solve(matches.x_left, T_wv, T_lv, matches.inv_depth,
-                       matches.valid, ev_t, ts_l, ts_r, rig, cfg.depth)
+        # with a mesh each rank refines its block of events; block
+        # matching stays replicated (its cost volume is image-bound)
+        solve = (ps.sharded_depth_solve(self.mesh, rig, cfg.depth)
+                 if self.mesh is not None
+                 else lambda *a: dr.solve(*a, rig, cfg.depth))
+        est = solve(matches.x_left, T_wv, T_lv, matches.inv_depth,
+                    matches.valid, ev_t, ts_l, ts_r)
         est = dr.point_culling(
             est, cfg.mapping.std_var_vis_threshold, cfg.cost_vis_threshold,
             cfg.mapping.inv_depth_min_range, cfg.mapping.inv_depth_max_range)
@@ -293,18 +312,25 @@ class SystemStatus(enum.Enum):
 
 
 class EsvoSystem:
-    """Host-side orchestrator of the mapping programs and the tracker."""
+    """Host-side orchestrator of the mapping programs and the tracker.
+
+    mesh: a 1-D DeviceMesh (parallel/sharding.py make_mesh) of SPMD
+    ranks, each running this system on the same inputs. The time-surface
+    inserts and the mapping cycle's depth solve then shard the event axis
+    over the ranks (the reference's NUM_THREAD_MAPPING event striping);
+    block matching (image-bound) and tracking (the reference's one
+    tracking thread) stay replicated. Every rank seeds its generator
+    alike, so all ranks draw the same points and hold the same state."""
 
     def __init__(self, rig: StereoRig, config: SystemConfig | None = None,
                  pose_table_size: int = 1024, seed: int = 0,
                  emit_debug_maps: bool = False, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "EsvoSystem(mesh=...): the event-axis sharding over a "
-                "device mesh is not ported yet")
         self.cfg = config or SystemConfig()
+        self.mesh = None if mesh is None else ps.check_mesh(mesh)
+        self._check_mesh_divides(self.cfg)
         self._rig = rig
-        self.cycle = MappingCycle(rig, self.cfg, device=device)
+        self.cycle = MappingCycle(rig, self.cfg, device=device,
+                                  mesh=self.mesh)
         self.device = self.cycle.device
         self.H, self.W = self.cycle.H, self.cycle.W
         self.dtype = self.cycle.dtype
@@ -344,14 +370,23 @@ class EsvoSystem:
         whose change callback resets the system). Rebuilds the
         MappingCycle; ``reset=False`` keeps the live state when the event
         budget and the fusion window keep their shapes."""
+        self._check_mesh_divides(config)
         old = self.cycle
         self.cfg = config
-        self.cycle = MappingCycle(self._rig, config, device=self.device)
+        self.cycle = MappingCycle(self._rig, config, device=self.device,
+                                  mesh=self.mesh)
         if reset or self.N != old.N or self.F != old.F:
             self.reset()
         else:
             self.cycle.history, self.cycle.hist_slot = (old.history,
                                                         old.hist_slot)
+
+    def _check_mesh_divides(self, config: SystemConfig) -> None:
+        n = config.mapping.process_event_num
+        if self.mesh is not None and n % self.mesh.size():
+            raise ValueError(
+                f"process_event_num {n} must be divisible by the mesh size "
+                f"{self.mesh.size()} for event-axis sharding")
 
     # -- state -----------------------------------------------------------------
     def reset(self):
@@ -460,8 +495,8 @@ class EsvoSystem:
         """One sync tick of a tracked roll: insert events, render the left
         surface, register the (pre-selected, ref-frame) map points to it.
         Returns (st_l, st_r, s_l, T_est, rms)."""
-        st_l = tsf.insert_events(st_l, evl)
-        st_r = tsf.insert_events(st_r, evr)
+        st_l = self.cycle.insert(st_l, evl)
+        st_r = self.cycle.insert(st_r, evr)
         s_l = self.cycle.render_left(st_l, ts).to(self.dtype)
         T_ref_left = torch.matmul(T_ref_world, T_cur.to(self.dtype))
         neg, gu, gv = reg.negative_time_surface(
@@ -822,8 +857,8 @@ class EsvoSystem:
             out["poses"] = poses_np
         else:
             for k in range(K):
-                st_l = tsf.insert_events(st_l, tick(evb_l, k))
-                st_r = tsf.insert_events(st_r, tick(evb_r, k))
+                st_l = self.cycle.insert(st_l, tick(evb_l, k))
+                st_r = self.cycle.insert(st_r, tick(evb_r, k))
             s_l, s_r = self.cycle.render_pair(st_l, st_r, t_dev[-1])
             for i, t in enumerate(t_syncs):
                 if gt_poses is not None:

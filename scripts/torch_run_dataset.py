@@ -13,8 +13,13 @@ backend (runtime/pose_graph_loop.py), --live-view the browser dashboard
 (utils/live_view.py). The system runs on the CUDA card; a Python caller
 passes ``main(argv, device="cpu")`` for the CPU.
 
---devices > 1 (the event-axis sharding, parallel/sharding.py) is not
-ported yet and stops the run at argument time.
+--devices N (> 1) runs N SPMD ranks (parallel/sharding.py run_ranks):
+every rank reads the same inputs and runs EsvoSystem(mesh=...) with the
+mapping event axis (and BA / the pose graph, with --ba /
+--loop-closure) sharded over the ranks; only rank 0 writes files, prints
+and serves the live view. On CUDA the ranks talk over NCCL, one card
+each, so N cards must be visible; on the CPU (``device="cpu"``) they are
+gloo processes.
 
 Example:
   python scripts/torch_run_dataset.py --dataset /data/rpg_bin \
@@ -34,6 +39,8 @@ import threading
 import time
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -46,6 +53,8 @@ from esvo_tpu_torch.io import datasets, rosbag  # noqa: E402
 from esvo_tpu_torch.io.events import (  # noqa: E402
     EventArray, load_events_npz, save_events_npz)
 from esvo_tpu_torch.io.stream import EventFrameStream  # noqa: E402
+from esvo_tpu_torch.parallel.sharding import (  # noqa: E402
+    make_mesh, run_ranks)
 from esvo_tpu_torch.runtime.backend_loop import BackendLoop  # noqa: E402
 from esvo_tpu_torch.runtime.checkpoint import (  # noqa: E402
     load_checkpoint, save_checkpoint)
@@ -60,7 +69,7 @@ from esvo_tpu_torch.runtime.system import (  # noqa: E402
 from esvo_tpu_torch.utils.live_view import LiveViewer  # noqa: E402
 
 
-def parse_args(argv=None):
+def parse_args(argv=None, device=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     src = ap.add_argument_group("dataset source (pick one)")
     src.add_argument("--dataset", help="rpg-format directory "
@@ -139,8 +148,10 @@ def parse_args(argv=None):
                          "WORKING; bootstrap and resets on the host path. "
                          "Requires --roll > 1 and one device")
     ap.add_argument("--devices", type=int, default=1,
-                    help="shard the mapping event axis over N devices "
-                         "(not ported yet: only 1)")
+                    help="shard the mapping event axis (and BA / the pose "
+                         "graph) over N SPMD ranks, one CUDA card each "
+                         "(EsvoSystem(mesh=...); PROCESS_EVENT_NUM must be "
+                         "divisible by N)")
     ap.add_argument("--loop-closure", action="store_true",
                     help="loop-closure + pose-graph backend: time-surface "
                          "descriptor revisit detection, ICP verification, "
@@ -163,10 +174,13 @@ def parse_args(argv=None):
                     help="mapping cycles per BA keyframe")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
-    if args.devices > 1:
-        ap.error("--devices > 1: the event-axis sharding over a device "
-                 "mesh (parallel/sharding.py) is not ported to "
-                 "esvo_tpu_torch yet")
+    if args.devices < 1:
+        ap.error(f"--devices {args.devices}: at least 1")
+    if args.devices > 1 and not dist.is_initialized() \
+            and torch.device("cuda" if device is None else device).type \
+            == "cuda" and torch.cuda.device_count() < args.devices:
+        ap.error(f"--devices {args.devices}: {torch.cuda.device_count()} "
+                 "CUDA card(s) visible; one NCCL rank a card")
     return args
 
 
@@ -248,8 +262,25 @@ def interpolate_gt(gt_times, gt_poses, t):
 def main(argv=None, device=None):
     """Run the replay; returns the result dict (ticks, wall_s, stats, and
     ate_rmse_m / rpe_* for a closed run with ground truth). `device`:
-    where the system runs, ``cuda`` unless given."""
-    args = parse_args(argv)
+    where the system runs, ``cuda`` unless given. With --devices N > 1
+    it starts N ranks and returns rank 0's result."""
+    args = parse_args(argv, device)
+    mesh = None
+    if args.devices > 1:
+        if args.resident:
+            raise SystemExit("--resident requires --roll > 1, --mode closed "
+                             "and a single device")
+        if not dist.is_initialized():
+            return run_ranks(main, args.devices, argv, device=device)
+        mesh = make_mesh(args.devices)
+    # rank 0 alone writes files, prints and serves the live view
+    lead = mesh is None or dist.get_rank() == 0
+    live = args.live_view is not None
+    args.quiet = args.quiet or not lead
+    if not lead:
+        args.debug_maps = args.save_depth_maps = None
+        args.global_map_out = args.live_view = None
+        args.checkpoint_every = None
     if args.calib:
         rig = load_rig(args.calib, device=device)
     elif args.bag:
@@ -274,7 +305,7 @@ def main(argv=None, device=None):
     system = EsvoSystem(rig, cfg,
                         emit_debug_maps=bool(args.debug_maps
                                              or args.live_view is not None),
-                        device=device)
+                        mesh=mesh, device=device)
     viewer = None
     ctl = {"params": [], "reset": False}
     ctl_lock = threading.Lock()
@@ -300,11 +331,11 @@ def main(argv=None, device=None):
     backend = None
     if args.ba:
         backend = BackendLoop(system, keyframe_every=args.ba_every,
-                              window=args.ba_window)
+                              window=args.ba_window, mesh=mesh)
     pose_graph = None
     if args.loop_closure:
         pose_graph = PoseGraphLoop(system, keyframe_every=args.loop_every,
-                                   lc_config=lc_config(args))
+                                   lc_config=lc_config(args), mesh=mesh)
     tick_rate = args.tick_rate_hz or cfg.tracking.tracking_rate_hz
     tick = 1.0 / tick_rate
     t0 = args.start
@@ -397,11 +428,18 @@ def main(argv=None, device=None):
         fl = {key: v for key, v in fl.items() if key != "dropped"}
         fr = {key: v for key, v in fr.items() if key != "dropped"}
         step = len(np.atleast_1d(tl))
-        if viewer is not None and (ctl["params"] or ctl["reset"]):
+        params, do_reset = [], False
+        if viewer is not None:
             # apply queued live-view control between chunks
             with ctl_lock:
                 params, ctl["params"] = ctl["params"], []
                 do_reset, ctl["reset"] = ctl["reset"], False
+        if live and mesh is not None:
+            # every rank applies rank 0's control, so the ranks stay in step
+            box = [(params, do_reset)]
+            dist.broadcast_object_list(box, src=0, group=mesh.get_group())
+            params, do_reset = box[0]
+        if params or do_reset:
             if resident is not None:
                 resident.finish()
                 resident = None
@@ -500,7 +538,8 @@ def main(argv=None, device=None):
         viewer.close()
 
     wall = time.perf_counter() - wall0
-    system.save_trajectory(args.out)
+    if lead:
+        system.save_trajectory(args.out)
     if not args.quiet:
         print(f"[torch_run_dataset] {len(sync_times)} ticks in {wall:.1f} s "
               f"({len(sync_times) / max(wall, 1e-9):.1f} ticks/s); "
@@ -528,7 +567,8 @@ def main(argv=None, device=None):
         pg_times, pg_T = pose_graph.optimized_trajectory()
         if len(pg_times):
             pg_out = args.out + ".pose_graph.txt"
-            save_tum(pg_out, pg_times, pg_T)
+            if lead:
+                save_tum(pg_out, pg_times, pg_T)
             result["pose_graph_trajectory"] = pg_out
             if gt_times is not None:
                 result["pg_ate_rmse_m"] = float(ate_rmse(

@@ -200,12 +200,67 @@ def test_ba_correction_gate():
     assert not loop._accept_correction(bad, down)
 
 
-def test_mesh_raises_not_implemented():
+def _drift_keyframes(n_kf, W=64, H=48, fx=50.0, cx=31.5, cy=23.5):
+    """BackendLoop keyframes (time, drifting pose, frame-local points,
+    pixels, valid) of test_ba_reduces_drift_ate's kind of scene."""
+    rng = np.random.default_rng(11)
+    P = 400
+    pts = np.stack([rng.uniform(-0.8, 0.8, P), rng.uniform(-0.6, 0.6, P),
+                    rng.uniform(1.5, 3.0, P)], axis=1)
+    kfs = []
+    for k in range(n_kf):
+        T = np.eye(4)
+        T[:3, 3] = [0.06 * k, 0.01 * k, 0.0]
+        D = np.eye(4)
+        D[:3, 3] = 0.01 * k * np.array([1.0, -0.5, 0.3])
+        Tinv = np.linalg.inv(T)
+        pc = pts @ Tinv[:3, :3].T + Tinv[:3, 3]
+        uv = np.stack([fx * pc[:, 0] / pc[:, 2] + cx,
+                       fx * pc[:, 1] / pc[:, 2] + cy], 1)
+        ok = (uv[:, 0] > 0) & (uv[:, 0] < W) & (uv[:, 1] > 0) \
+            & (uv[:, 1] < H)
+        kfs.append((float(k), D @ T, pc, uv, ok))
+    return kfs
+
+
+def test_mesh_raises_not_implemented(tmp_path):
+    """A mesh that is no DeviceMesh raises TypeError; a 1-rank mesh runs
+    the sharded BA and pose graph, equal bit for bit to the plain loops
+    (collectives over one rank are identities)."""
+    import torch_parallel_ranks as ranks
     sys_ = _small_system()
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         BackendLoop(sys_, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         PoseGraphLoop(sys_, mesh=object())
+    kfs = _drift_keyframes(3)
+    with ranks.one_rank_mesh(tmp_path) as mesh:
+        loops = []
+        for m in (mesh, None):
+            system = _small_system()
+            system.status = SystemStatus.WORKING
+            loop = BackendLoop(system, keyframe_every=1, voxel_size=0.08,
+                               mesh=m)
+            feed = iter(kfs)
+            loop._sample_keyframe = lambda: next(feed)
+            for _ in kfs:
+                loop.maybe_update({"bm_stats": {}})
+            loops.append(loop)
+        assert loops[0].num_ba_runs == loops[1].num_ba_runs == 1
+        np.testing.assert_array_equal(loops[0].last_correction,
+                                      loops[1].last_correction)
+        poses = []
+        for m in (mesh, None):
+            pgl = PoseGraphLoop(_small_system(), mesh=m)
+            pgl._kfs = [(t, T, None, None) for (t, T, *_) in
+                        _drift_keyframes(5)]
+            # the revisit measures the ground-truth motion 0 -> 4
+            rel = np.eye(4)
+            rel[:3, 3] = [0.24, 0.04, 0.0]
+            pgl._loop_edges = [(0, 4, rel, 400.0, 400.0)]
+            pgl._optimize()
+            poses.append(np.stack([T for (_, T, _, _) in pgl._kfs]))
+        np.testing.assert_array_equal(poses[0], poses[1])
 
 
 def _jax_checkpoint(tmp_path):

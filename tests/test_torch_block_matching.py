@@ -1,10 +1,15 @@
-"""Parity of the port's block matching (the "slice" cost volume) with the
-JAX package, on the world of tests/test_block_matching.py in float32.
+"""Parity of the port's block matching (the "slice" and "matmul" cost
+volumes) with the JAX package, on the world of
+tests/test_block_matching.py in float32.
 
 Disparity and inverse depth must be equal on at least 99% of the events
 matched on both sides, and the validity decisions must agree on at least
 99% of all events (a cost at the ZNCC threshold may flip at float32
 rounding). The failure counters must be equal.
+
+"matmul" against "slice" in the port: valid and disparity exactly equal,
+cost atol 2e-4 (tests/test_block_matching.py's own tolerances: the
+product adds the horizontal box in another order).
 """
 import numpy as np
 import jax.numpy as jnp
@@ -119,8 +124,57 @@ def test_local_minimum_check_and_bounds():
         got = tbm.derive_disparity_bounds(rt, lo, hi, tbm.BlockMatchConfig())
         assert got == jbm.derive_disparity_bounds(rj, lo, hi,
                                                   jbm.BlockMatchConfig())
-    with pytest.raises(NotImplementedError):
-        tbm.match_events(torch.zeros(H, W), torch.zeros(H, W),
-                         torch.zeros(1, 2), torch.zeros(1, 2), torch.zeros(1),
-                         torch.ones(1, dtype=torch.bool), rt.left.mask, rt,
-                         tbm.BlockMatchConfig(cost_strategy="matmul"))
+    # an unknown strategy raises the JAX package's ValueError
+    args = (torch.zeros(H, W), torch.zeros(H, W), torch.zeros(1, 2),
+            torch.zeros(1, 2), torch.zeros(1),
+            torch.ones(1, dtype=torch.bool), rt.left.mask, rt)
+    with pytest.raises(ValueError, match="unknown cost_strategy"):
+        tbm.match_events(*args, tbm.BlockMatchConfig(cost_strategy="mxu"))
+    with pytest.raises(ValueError, match="unknown cost_strategy"):
+        jbm.match_events(*(jnp.asarray(a.numpy()) for a in args[:6]),
+                         rj.left.mask, rj,
+                         jbm.BlockMatchConfig(cost_strategy="mxu"))
+
+
+def _matmul_world():
+    """tests/test_block_matching.py::test_matmul_strategy_matches_slice's
+    inputs: a 7-pixel shift with noise on the right surface."""
+    rng = np.random.default_rng(3)
+    ts_l, ts_r = _shifted_pair(rng, 7)
+    ts_r = ts_r + rng.normal(0, 10, ts_r.shape)
+    N = 256
+    x = np.stack([rng.uniform(60, W - 20, N), rng.uniform(10, H - 10, N)],
+                 axis=1)
+    return ts_l, ts_r, x
+
+
+def test_matmul_strategy_matches_slice():
+    ts_l, ts_r, x = _matmul_world()
+    _, rt = _rigs()
+    N = x.shape[0]
+    t = lambda a: torch.tensor(a, dtype=torch.float32)
+    args = (t(ts_l), t(ts_r), t(x), t(x), torch.zeros(N),
+            torch.ones(N, dtype=torch.bool), rt.left.mask, rt)
+    a, sa = tbm.match_events_stats(*args, tbm.BlockMatchConfig(
+        cost_strategy="slice", zncc_threshold=1.0))
+    b, sb = tbm.match_events_stats(*args, tbm.BlockMatchConfig(
+        cost_strategy="matmul", zncc_threshold=1.0))
+    assert a.valid.sum() > 0.5 * N
+    torch.testing.assert_close(b.valid, a.valid, rtol=0, atol=0)
+    torch.testing.assert_close(b.disparity, a.disparity, rtol=0, atol=0)
+    torch.testing.assert_close(b.cost, a.cost, rtol=0, atol=2e-4)
+    assert {k: int(v) for k, v in sb.items()} == \
+        {k: int(v) for k, v in sa.items()}
+
+
+@pytest.mark.parametrize("max_disparity", [40, 13])
+def test_matmul_strategy_matches_jax(max_disparity):
+    """The port's "matmul" against JAX's "matmul" (a full chunk count at
+    40 disparities, a ragged last chunk at 13)."""
+    ts_l, ts_r, x = _matmul_world()
+    cfg = dict(cost_strategy="matmul", zncc_threshold=1.0,
+               max_disparity=max_disparity)
+    a, sa, b, sb = _run_both(ts_l, ts_r, x, np.ones(x.shape[0], bool),
+                             jbm.BlockMatchConfig(**cfg),
+                             tbm.BlockMatchConfig(**cfg))
+    _assert_agree(a, sa, b, sb)

@@ -27,6 +27,10 @@ adjustment and the pose graph on the card against the CPU port, BA, the
 pose graph and their segment sums the same bits on every run, and one
 chunk of the event simulator's substeps (chip_smoke.py's cases).
 
+The event-axis sharding at world 1 on NCCL (one spawned rank): the
+surface update and the map estimate at rpg and DSEC sizes bit for bit the
+unsharded calls on the card.
+
 Run on a machine with an NVIDIA GPU:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (``tests/conftest.py`` imports JAX, which such a machine need not have).
@@ -640,3 +644,21 @@ def test_segment_sum_repeats_itself_on_the_card(smoke):
     assert all(torch.equal(outs[0], o) for o in outs[1:])
     ref = segment_sum(vals.double(), idx, 64)
     torch.testing.assert_close(outs[0].double(), ref, rtol=1e-3, atol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def world1(smoke):
+    from esvo_tpu_torch.parallel import sharding as ps
+    worlds = smoke.shard_worlds()
+    cases = ("surface", "map_rpg", "map_dsec")
+    got = ps.run_ranks(smoke.shard_some, 1, worlds, cases, device="cuda")
+    return worlds, got
+
+
+@pytest.mark.parametrize("case", ["surface", "map_rpg", "map_dsec"])
+def test_sharded_world1_nccl_is_bitwise(smoke, world1, case):
+    worlds, got = world1
+    fn, world = smoke.SHARD_CASES[case]
+    want = smoke._host_arrays(fn(worlds[world], "cuda"))
+    assert smoke._bitwise(smoke._host_arrays(got[case]), want), \
+        smoke._max_diff(smoke._host_arrays(got[case]), want)

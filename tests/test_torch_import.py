@@ -42,6 +42,7 @@ def test_import_loads_no_jax():
             "import esvo_tpu_torch.runtime.pose_graph_loop\n"
             "import esvo_tpu_torch.utils.profiling\n"
             "import esvo_tpu_torch.utils.live_view\n"
+            "import esvo_tpu_torch.parallel.sharding\n"
             "sys.path.insert(0, 'scripts')\n"
             "import torch_run_dataset, torch_run_live, torch_repack_bag\n"
             "import torch_sim_campaign\n"

@@ -1,9 +1,9 @@
 """scripts/torch_run_dataset.py on tests/test_run_dataset.py's fixture (an
 rpg text directory with calibration and reference-format YAMLs), run on
 the CPU through ``main(argv, device="cpu")``: the closed loop on the host
-path and through the resident loop, checkpoint and resume, and
---devices > 1 (the sharding is not ported yet), which stops at argument
-time. The backend and dashboard flags run in
+path and through the resident loop, checkpoint and resume, --devices 2
+(two gloo ranks; rank 0 writes the trajectory), and --devices beyond the
+visible CUDA cards, which stops at argument time. The backend and dashboard flags run in
 tests/test_torch_run_dataset_backends.py. The bars are those of
 tests/test_run_dataset.py's cases.
 """
@@ -98,10 +98,35 @@ def test_checkpoint_resume(dataset_dir, tmp_path):  # noqa: F811
 
 
 @pytest.mark.parametrize("flags, missing", [
-    (["--devices", "2"], "sharding")])
+    (["--devices", "64"], "CUDA card(s) visible")])
 def test_unported_flags_stop_at_argument_time(flags, missing, capsys):
+    """More devices than visible cards stops at argument time (the
+    default device is cuda), naming the count."""
     with pytest.raises(SystemExit) as exc:
         torch_run_dataset.parse_args(["--dataset", "d", "--calib", "c"]
                                      + flags)
     assert exc.value.code == 2
     assert missing in capsys.readouterr().err
+
+
+def test_devices_runs_ranks(dataset_dir, tmp_path):  # noqa: F811
+    """--devices 2 --roll 5 --loop-closure, as
+    tests/test_run_dataset.py::test_run_dataset_sharded_rolls runs it
+    (its bars): two gloo ranks, rank 0's trajectory file; with
+    --live-view, rank 0 serves the dashboard and every chunk broadcasts
+    its (here empty) live control to the other rank."""
+    out = str(tmp_path / "traj_sh.txt")
+    result = torch_run_dataset.main(
+        base_args(dataset_dir) + [
+            "--duration", "0.35", "--devices", "2", "--roll", "5",
+            "--loop-closure", "--loop-every", "2", "--live-view", "0",
+            "--out", out, "--quiet"], device="cpu")
+    assert result["stats"]["map_points"] > 150
+    assert result["ate_rmse_m"] < 0.15, result
+    assert "loop_closures" in result
+    t, T = load_tum(out)
+    assert len(t) == result["ticks"] and np.isfinite(T).all()
+    with pytest.raises(SystemExit, match="single device"):
+        torch_run_dataset.main(base_args(dataset_dir) + [
+            "--devices", "2", "--roll", "5", "--resident", "2"],
+            device="cpu")

@@ -328,7 +328,11 @@ def test_record_pose_reanchors_after_sustained_rejections():
     assert system.stats["tracking_rejects"] >= 5
 
 
-def test_no_cpu_fallback_and_no_mesh():
+def test_no_cpu_fallback_and_no_mesh(tmp_path):
+    """Nothing falls back to the CPU; a mesh that is no DeviceMesh raises
+    TypeError, and a 1-rank mesh's system keeps the same surfaces as the
+    plain one, bit for bit."""
+    import torch_parallel_ranks as ranks
     rig = make_ideal_rig(32, 24, 20.0, 20.0, 15.5, 11.5, 0.1, device="cpu")
     if torch.cuda.is_available():
         assert EsvoSystem(rig).device.type == "cuda"
@@ -337,5 +341,23 @@ def test_no_cpu_fallback_and_no_mesh():
         # build instead of running on the CPU
         with pytest.raises((RuntimeError, AssertionError)):
             EsvoSystem(rig)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         EsvoSystem(rig, device="cpu", mesh=object())
+    rng = np.random.default_rng(0)
+    n = 301
+    frames = [{"x": rng.integers(0, 32, n), "y": rng.integers(0, 24, n),
+               "t": np.full(n, 0.01 * (k + 1), np.float32) + rng.uniform(
+                   0, 0.005, n).astype(np.float32),
+               "p": rng.random(n) > 0.5, "valid": rng.random(n) > 0.1}
+              for k in range(3)]
+    with ranks.one_rank_mesh(tmp_path) as mesh:
+        systems = [EsvoSystem(rig, device="cpu", mesh=m) for m in (mesh, None)]
+        for k, f in enumerate(frames):
+            for s in systems:
+                s.process_tick(0.01 * (k + 1), f, f, do_mapping=False)
+    for a, b in ((systems[0].ts_state_left, systems[1].ts_state_left),
+                 (systems[0].ts_state_right, systems[1].ts_state_right)):
+        torch.testing.assert_close(a.last_t_pos, b.last_t_pos, rtol=0,
+                                   atol=0)
+        torch.testing.assert_close(a.last_t_neg, b.last_t_neg, rtol=0,
+                                   atol=0)
