@@ -62,5 +62,7 @@ def psum(x: torch.Tensor, group=None) -> torch.Tensor:
     (``all_reduce``; JAX's ``lax.psum`` over a mesh axis); x itself
     without a group."""
     if group is not None:
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        # imported here: parallel/sharding.py imports this module
+        from esvo_tpu_torch.parallel.sharding import all_reduce
+        all_reduce(x, dist.ReduceOp.SUM, group)
     return x

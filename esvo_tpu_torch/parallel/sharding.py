@@ -29,6 +29,12 @@ ranks compute it from the same inputs in the same order.
 Backends: ``nccl`` for CUDA ranks (one card each), ``gloo`` for CPU
 ranks, and ``gloo`` over CUDA tensors only when the caller names it (two
 ranks may then share one card).
+
+Every collective issued here or through ``ops/linalg.py::psum`` adds the
+bytes of its result to ``COLLECTIVE_BYTES`` (by op, "all-gather" and
+"all-reduce"): the sum of output shapes that the JAX package's
+scripts/bench_scaling.py parses from its compiled HLO, counted where the
+port sends it (scripts/torch_bench_scaling.py reads it).
 """
 from __future__ import annotations
 
@@ -56,6 +62,22 @@ from esvo_tpu_torch.tracking import registration as reg
 from esvo_tpu_torch.utils.precision import highest_precision
 
 EVENT_AXIS = "ev"
+
+
+# bytes of the results of this process's collectives, by op (each rank
+# counts its own; a reader clears it)
+COLLECTIVE_BYTES: dict[str, int] = {}
+
+
+def _count(op: str, nbytes: int) -> None:
+    COLLECTIVE_BYTES[op] = COLLECTIVE_BYTES.get(op, 0) + nbytes
+
+
+def all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
+    """``dist.all_reduce`` of x in place over `group`, its bytes counted."""
+    _count("all-reduce", x.numel() * x.element_size())
+    dist.all_reduce(x, op=op, group=group)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -104,6 +126,7 @@ def _all_gather(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
     travel as uint8)."""
     send = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
     parts = [torch.empty_like(send) for _ in range(mesh.size())]
+    _count("all-gather", mesh.size() * send.numel() * send.element_size())
     dist.all_gather(parts, send, group=mesh.get_group())
     out = torch.cat(parts)
     return out.to(torch.bool) if x.dtype == torch.bool else out
@@ -133,7 +156,7 @@ def sharded_surface_update(mesh: DeviceMesh, state: tsf.TimeSurfaceState,
     local = tsf.insert_events(state, tsf.EventBatch(
         x=ev.x[sl], y=ev.y[sl], t=ev.t[sl], p=ev.p[sl], valid=ev.valid[sl]))
     for grid in (local.last_t_pos, local.last_t_neg):
-        dist.all_reduce(grid, op=dist.ReduceOp.MAX, group=mesh.get_group())
+        all_reduce(grid, dist.ReduceOp.MAX, mesh.get_group())
     return local
 
 

@@ -46,6 +46,9 @@ def test_import_loads_no_jax():
             "sys.path.insert(0, 'scripts')\n"
             "import torch_run_dataset, torch_run_live, torch_repack_bag\n"
             "import torch_sim_campaign\n"
+            "import torch_bench, torch_bench_solve, torch_bench_ticks\n"
+            "import torch_profile_system, torch_measure_em_overflow\n"
+            "import torch_bench_scaling\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'flax')) or m == 'esvo_tpu' "
             "or m.startswith('esvo_tpu.'))\n"
