@@ -3,13 +3,16 @@
     python3 chip_smoke.py
 
 1. the card: name, count and power limit;
-2. build the three hand-written CUDA kernels from esvo_tpu_torch/csrc
+2. build the five hand-written CUDA kernels from esvo_tpu_torch/csrc
    (nvcc, sm_90a, one process per source, all at once);
 3. each kernel against its plain PyTorch twin on the card, on the same
    inputs, at the rpg (240x180, N=1000) and DSEC (640x480, N=10000)
    shapes, with its time, the twin's, a library call's where one exists,
    and its roofline bound; K1 and K3 also as one pair launch on both
-   cameras' inputs; the card's launch floor (a one-element fill_);
+   cameras' inputs; the card's launch floor (a one-element fill_); K4
+   (the tracker's 10 LM rounds, 2000 map points) and K5 (regularization
+   at the presets' radii 5 and 20, bit for bit in both norms) at the
+   same sizes;
 4. the WORKING mapping cycle (MappingCycle: render -> estimate ->
    rebuild) on synthetic scenes at rpg and DSEC scale, with per-stage
    times, the kernels' launch counts and the error against ground truth;
@@ -27,8 +30,9 @@
    then dispatches of RESIDENT_R rolls; capture time, one graph-replayed
    roll against the same roll run eagerly, ms a tick and ticks/s beside
    the host path's, a profiled dispatch (idle share, kernels a roll,
-   K1-K3 launches inside the replays by kernel name), the ATE and the
-   largest per-tick pose difference from the host path;
+   K1-K5 launches inside the replays by kernel name, K4 once a tick),
+   one replay's device span a tick beside the figures before K4 and K5,
+   the ATE and the largest per-tick pose difference from the host path;
 7. the tracking solve again while the caller has set float32 matmul
    precision "high": the port's guard keeps it in full float32 (it must
    agree with the CPU port) and the caller's setting holds afterwards;
@@ -37,7 +41,7 @@
 9. the mapper benchmark (MVStereoSystem) on the rpg rig, preset and
    scene in each of its five modes, with ground-truth poses, 30 ticks, a
    mapping cycle every 5: ms a mapping tick, map points, the error
-   against the scene, K1-K3 launches and peak memory, and each mode's
+   against the scene, K1-K5 launches and peak memory, and each mode's
    mapping stage replayed by the CPU port on the card's inputs; one
    event-matching cycle at DSEC scale (N = 10000, 25x25 patches);
 10. scripts/torch_run_dataset.py on a rosbag of the rpg scene that
@@ -65,7 +69,7 @@
    unsharded one), then world 2 on gloo over CUDA tensors with both
    ranks on this card (tests/test_parallel.py's tolerances, the ranks'
    replicated outputs bit for bit, the closed loop's ATE under its bar);
-   K1-K3 launches summed over the ranks;
+   K1-K5 launches summed over the ranks;
 16. the depth LM's scan (lm_kernel="xla", zncc, unwindowed) and block
    matching's "matmul" volume at rpg against the CPU port, with ms
    beside K2's path and the "slice" volume;
@@ -76,7 +80,9 @@
    and DSEC cycles against the CPU port on the same worlds with a
    profile of each; K1 and K2 checked and timed at its shapes (rpg N =
    4096, DSEC N = 8192 windows);
-18. the kernel table as one JSON line; the last line is the result.
+18. examples/torch_run_synthetic.py (the README's demo) at its defaults
+   on the card: WORKING, its ATE bar, K4 launched;
+19. the kernel table as one JSON line; the last line is the result.
 
 Any failed check raises, and the script then exits non-zero. Without a
 CUDA device it exits non-zero before printing any result.
@@ -124,8 +130,10 @@ from esvo_tpu_torch.mapping import fusion as fu
 from esvo_tpu_torch.mapping import initialization as init
 from esvo_tpu_torch.mapping.event_matcher import (
     EventMatcherConfig, match_events_temporal_stats)
-from esvo_tpu_torch.mapping.regularization import regularize
-from esvo_tpu_torch.ops import _build, lm, patches, remap
+from esvo_tpu_torch.mapping.regularization import (regularize,
+                                                   regularize_plain)
+from esvo_tpu_torch.ops import _build, lm, patches, remap, track
+from esvo_tpu_torch.ops import regularize as regularize_op
 from esvo_tpu_torch.ops.linalg import solve_spd
 from esvo_tpu_torch.parallel import sharding as ps
 from esvo_tpu_torch.runtime import backend_loop, mvstereo as mv
@@ -223,6 +231,12 @@ RESIDENT_R = 2         # rolls a resident dispatch (scripts/sim_campaign.py)
 # bar leaves room above the seeds' spread and stays below the static
 # pose's score.
 CLOSED_LOOP_ATE_BAR = 0.07
+# the resident loop's figures before K4 and K5 replaced the tracker's and
+# the regularizer's eager ops (PERF.md section 5, measured by this script
+# on an H100 80GB HBM3 at 700 W): kernels a roll of a profiled dispatch,
+# one replay's device span a tick (ms), ticks/s
+RESIDENT_BEFORE_K4_K5 = dict(kernels_per_roll=38450, replay_ms_per_tick=10.79,
+                             ticks_per_s=[74.2, 110.0])
 # ATE bar of scripts/torch_bench.py's closed loop (m; its own 3.2-s scene
 # and config), calibrated on the CPU port by
 # `scripts/torch_closed_loop_ate.py --bench`: 0.044-0.122 m over eight
@@ -618,6 +632,184 @@ def lm_plan(kw: dict, n: int) -> dict:
                 smem_bytes_per_block=info["smem_bytes"], buffering="single")
 
 
+def track_world(rig: StereoRig, m: int, seed: int, device="cuda"):
+    """A tracking problem at the rig's size: m map points at 1.5-4 m (a
+    tenth of them invalid), an edge surface (255 at the points'
+    projections from a true pose a small motion away, a Gaussian
+    fall-off of 2.5 px) through the tracker's blur and Sobel, and the
+    identity as the guess. Returns (problem, camera, config)."""
+    rng = np.random.default_rng(seed)
+    cam = rig.left
+    H, W = cam.height, cam.width
+    P = cam.params.P.double().cpu().numpy()
+    f = P[0, 0]
+    x_half, y_half = 0.45 * W / f, 0.45 * H / f
+    z = rng.uniform(1.5, 4.0, m)
+    pts = np.stack([rng.uniform(-x_half, x_half, m) * z,
+                    rng.uniform(-y_half, y_half, m) * z, z], 1)
+    T_true = np.eye(4)
+    T_true[:3, :3] = so3_exp(torch.tensor([0.001, -0.0015, 0.001],
+                                          dtype=torch.float64)).numpy()
+    T_true[:3, 3] = [0.008, -0.006, 0.004]
+    Tinv = np.linalg.inv(T_true)
+    p = pts @ Tinv[:3, :3].T + Tinv[:3, 3]
+    h = p @ P[:, :3].T + P[:, 3]
+    uv = h[:, :2] / h[:, 2:3]
+    d2 = np.full((H, W), np.inf)
+    rad = 8
+    for u, v in uv:
+        x0, y0 = int(np.floor(u)) - rad, int(np.floor(v)) - rad
+        xs = np.arange(max(x0, 0), min(x0 + 2 * rad + 1, W))
+        ys = np.arange(max(y0, 0), min(y0 + 2 * rad + 1, H))
+        if xs.size and ys.size:
+            sub = d2[ys[0]:ys[-1] + 1, xs[0]:xs[-1] + 1]
+            np.minimum(sub, (xs[None] - u) ** 2 + (ys[:, None] - v) ** 2,
+                       out=sub)
+    ts = torch.tensor(255.0 * np.exp(-d2 / (2 * 2.5 ** 2)), dtype=F32,
+                      device=device)
+    valid = torch.tensor(rng.random(m) > 0.1, device=device)
+    cfg = reg.RegProblemConfig(**RPG["tracker"])
+    eye = torch.eye(4, dtype=F32, device=device)
+    prob = reg.make_problem(eye, eye, torch.tensor(pts, dtype=F32,
+                                                   device=device),
+                            valid, ts, cfg)
+    return prob, cam, cfg
+
+
+def _pose_diff(Ta: torch.Tensor, Tb: torch.Tensor) -> tuple[float, float]:
+    a, b = Ta.double().cpu().numpy(), Tb.double().cpu().numpy()
+    return (float(np.linalg.norm(a[:3, 3] - b[:3, 3])),
+            pose_angle(a[:3, :3], b[:3, :3]))
+
+
+def check_track(rig: StereoRig, m: int = 2000, iters: int = 200,
+                device="cuda") -> dict:
+    """K4 (one launch: the tracker's 10 LM rounds) against its twin
+    solve_plain on the card, on the same problem: the final pose within
+    1e-4 m and 1e-4 rad (tests/test_torch_tracking.py's tolerance; the
+    rounds' accept tests may fall otherwise on near-ties, so the rounds
+    whose rms differs by more than 1e-3 relative are counted, not
+    gated). Two launches must agree bit for bit. Timed through
+    ops/track.py's wrapper on contiguous inputs, so the time is K4's."""
+    prob, cam, cfg = track_world(rig, m, seed=7, device=device)
+    got = reg.solve(prob, cam, cfg)
+    again = reg.solve(prob, cam, cfg)
+    if not (torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])):
+        raise AssertionError("K4: two launches on the same inputs differ")
+    want = reg.solve_plain(prob, cam, cfg)
+    t_diff, R_diff = _pose_diff(got[1], want[1])
+    rms_k, rms_p = got[2].cpu().numpy(), want[2].cpu().numpy()
+    rounds_differ = int((np.abs(rms_k - rms_p)
+                         > 1e-3 * np.abs(rms_p)).sum())
+    if not (t_diff < 1e-4 and R_diff < 1e-4):
+        raise AssertionError(f"K4 differs from its twin: {t_diff} m, "
+                             f"{R_diff} rad, rms {rms_k} vs {rms_p}")
+    args = [a.contiguous() for a in (prob.R, prob.t, prob.T_world_ref,
+                                     prob.points, prob.point_valid,
+                                     prob.ts_negative, prob.grad_u,
+                                     prob.grad_v, cam.params.P, cam.mask)]
+    kw = dict(batch_size=cfg.batch_size, max_iteration=cfg.max_iteration,
+              huber=cfg.ls_norm == "Huber",
+              huber_threshold=cfg.huber_threshold,
+              lm_damping=cfg.lm_damping)
+    M, K = prob.points.shape[0], cfg.max_iteration
+    B = min(cfg.batch_size, M)
+    nb = max(M // cfg.batch_size, 1)
+    starts = {min((it % nb) * cfg.batch_size, M - B) for it in range(K)}
+    touched = len({i for s in starts for i in range(s, s + B)})
+    # bytes: each point of the visited batches once (12 B + its valid
+    # byte), and per point and round the taps the three passes need (4
+    # of the negative surface for the cost, 4 of each gradient for the
+    # Jacobian, 4 for the trial cost: 16 floats) and 3 mask bytes; the
+    # outputs. flops per point and round, counted from track.cu: the two
+    # residuals (~50 each), the Jacobian (~92), the 33 running sums
+    # (~58); per round the serial 6x6 algebra (~400).
+    nbytes = touched * 13 + K * B * (16 * 4 + 3) + (9 + 3 + 16 + K) * 4
+    flops = K * B * 250 + K * 400
+    b, by = bound(nbytes, flops)
+    res = _times(max(t_diff, R_diff),
+                 lambda: track.track_solve(*args, **kw),
+                 lambda: reg.solve_plain(prob, cam, cfg), None, iters, b, by)
+    res.update(t_diff_m=t_diff, R_diff_rad=R_diff, rounds=K,
+               rounds_rms_differ=rounds_differ, points=M, batch=B,
+               bytes=nbytes, flops=flops, rms_kernel=rms_k.tolist(),
+               rms_twin=rms_p.tolist())
+    return res
+
+
+def regularize_world(H: int, W: int, seed: int, nu_inf_share: float = 0.2,
+                     device="cuda") -> fu.DepthGrid:
+    """A fused depth grid at (H, W): a slanted inverse-depth plane with
+    noise, about a sixth of the cells occupied (denser at the bottom),
+    per-cell variances, Student-t scales and nu (a share of them inf)."""
+    rng = np.random.default_rng(seed)
+    gy, gx = np.mgrid[0:H, 0:W]
+    noise = (0.002 + 0.02 * gx / W) * rng.standard_normal((H, W))
+    occ = rng.random((H, W)) < 0.02 + 0.3 * (gy / H) ** 2
+    inv = np.where(occ, 0.3 + 0.2 * gx / W + 0.1 * gy / H + noise, -1.0)
+    var = (0.004 + 0.01 * rng.random((H, W))) ** 2
+    nu = 2.0 + 4.0 * rng.random((H, W))
+    nu[rng.random((H, W)) < nu_inf_share] = np.inf
+    t = lambda a: torch.tensor(a, dtype=F32, device=device)
+    grid = fu.empty_grid(H, W, F32, device)
+    return grid.replace(inv_depth=t(inv), variance=t(var),
+                        scale2=t(var * (0.5 + rng.random((H, W)))), nu=t(nu))
+
+
+def close_pairs(grid: fu.DepthGrid, r: int) -> int:
+    """(valid centre, close neighbour) pairs over the (2r+1)^2 windows:
+    the pairs the Tdist fold updates on (regularize_plain's `close`)."""
+    H, W = grid.inv_depth.shape
+    valid, invD = grid.occupied, grid.inv_depth
+    std2 = 2.0 * torch.sqrt(torch.clamp(grid.variance, min=0.0))
+    pv = F.pad(valid, (r, r, r, r), value=False)
+    pd = F.pad(invD, (r, r, r, r), value=0.0)
+    ps = F.pad(std2, (r, r, r, r), value=2.0)
+    total = torch.zeros((), dtype=torch.int64, device=invD.device)
+    for dy in range(2 * r + 1):
+        for dx in range(2 * r + 1):
+            diff = torch.abs(invD - pd[dy:dy + H, dx:dx + W])
+            close = valid & pv[dy:dy + H, dx:dx + W] & (
+                (diff < std2) | (diff < ps[dy:dy + H, dx:dx + W]))
+            total += close.sum()
+    return int(total)
+
+
+def check_regularize(H: int, W: int, rcfg, iters: int = 50,
+                     device="cuda") -> dict:
+    """K5 against its twin regularize_plain on the card at (H, W) with
+    the preset's radius and gates: bit for bit in both norms (Tdist and
+    l2, a fifth of the points at nu = inf), timed in the preset's norm.
+    Bound: operations, from this grid: ~8 float32 operations a (valid
+    centre, window offset) pair, 12 more a close pair under Tdist (three
+    divisions) or 3 under l2; bytes: five (H, W) planes in, one out."""
+    grid = regularize_world(H, W, seed=9, device=device)
+    res = {}
+    for norm in ("Tdist", "l2"):
+        cfg = dataclasses.replace(rcfg, ls_norm=norm)
+        got = regularize(grid, cfg).inv_depth
+        again = regularize(grid, cfg).inv_depth
+        want = regularize_plain(grid, cfg).inv_depth
+        if not (torch.equal(got, want) and torch.equal(got, again)):
+            raise AssertionError(
+                f"K5 {norm} is not bit for bit its twin: "
+                f"{int((got != want).sum())} cells differ")
+        res[norm] = dict(kept=int((grid.occupied & (got != fu.EMPTY)).sum()),
+                         changed=int((got != grid.inv_depth).sum()))
+    r = rcfg.radius
+    n_valid = int(grid.occupied.sum())
+    pairs = close_pairs(grid, r)
+    flops = n_valid * (2 * r + 1) ** 2 * 8 + pairs * (
+        12 if rcfg.ls_norm != "l2" else 3)
+    b, by = bound(H * W * (1 + 4 * 4 + 4), flops)
+    out = _times(0.0, lambda: regularize(grid, rcfg),
+                 lambda: regularize_plain(grid, rcfg), None, iters, b, by)
+    out.update(radius=r, norm=rcfg.ls_norm, valid=n_valid, close_pairs=pairs,
+               flops=flops, by_norm=res,
+               shared_bytes=regularize_op.shared_bytes(r))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the mapping cycle
 # ---------------------------------------------------------------------------
@@ -687,13 +879,15 @@ def _profiled(fn, again=None) -> dict:
 
 # how the profiler names each hand-written kernel (the demangled symbols
 # of csrc/*.cu: remap_one_kernel / remap_kernel<PPT, NCAM>,
-# slice_patches_kernel<RPL, VEC>, lm_kernel<KPL, TDIST>)
+# slice_patches_kernel<RPL, VEC>, lm_kernel<KPL, TDIST>,
+# track_solve_kernel, regularize_kernel<TDIST>)
 KERNEL_NAMES = {"remap": "remap_", "patches": "slice_patches_kernel<",
-                "lm": "lm_kernel<"}
+                "lm": "lm_kernel<", "track": "track_solve_kernel",
+                "regularize": "regularize_kernel<"}
 
 
 def kernel_counts(device_events) -> dict:
-    """Launches of K1-K3 among a profile's device events, by kernel name:
+    """Launches of K1-K5 among a profile's device events, by kernel name:
     the only count that sees the kernels a CUDA graph replays."""
     return {k: sum(e.count for e in device_events if pat in e.key)
             for k, pat in KERNEL_NAMES.items()}
@@ -703,11 +897,17 @@ def profile_cycle(cycle: MappingCycle, args) -> dict:
     """One more estimate + rebuild on the last mapping tick's inputs (the
     window is not pushed), and the regularization pass alone."""
     grid = cycle.rebuild_frame(cycle.history, args[-1])[0]
-    return dict(
-        cycle=_profiled(lambda: (cycle.mapping_estimate(*args),
-                                 cycle.rebuild_frame(cycle.history,
-                                                     args[-1]))),
-        regularize=_profiled(lambda: regularize(grid, cycle.cfg.regularizer)))
+    out = dict(cycle=_profiled(lambda: (cycle.mapping_estimate(*args),
+                                        cycle.rebuild_frame(cycle.history,
+                                                            args[-1]))))
+    # the wrapper's count too: the profiler may record no device event in
+    # a region this short
+    n0 = regularize_op.KERNEL.launches
+    out["regularize"] = _profiled(lambda: regularize(grid,
+                                                     cycle.cfg.regularizer))
+    out["regularize"]["k5_launches_per_call"] = (
+        regularize_op.KERNEL.launches - n0) / 2
+    return out
 
 
 def run_cycle(name: str, rig: StereoRig, cfg: SystemConfig, scene,
@@ -1056,7 +1256,8 @@ def run_resident(rig: StereoRig, cfg: SystemConfig, scene, ticks, evs,
                 busy_exceeds_wall=prof["device_busy_ms"]
                 > prof["profiled_wall_ms"],
                 idle_share_outside_replays=1.0 - RESIDENT_R
-                * float(np.median(spans)) / prof["wall_ms"])
+                * float(np.median(spans)) / prof["wall_ms"],
+                replay_ms_per_tick=float(np.median(spans)) / ROLL)
     summary = loop.finish()
     t_est, T_est = system.trajectory()
     if not np.isfinite(T_est).all():
@@ -1074,7 +1275,8 @@ def run_resident(rig: StereoRig, cfg: SystemConfig, scene, ticks, evs,
                profiled_dispatch=dict(
                    prof, kernels_per_roll=prof["device_launches"] / RESIDENT_R,
                    launches_per_roll={k: v / RESIDENT_R for k, v in
-                                      prof["kernel_launches"].items()}))
+                                      prof["kernel_launches"].items()}),
+               before_k4_k5=RESIDENT_BEFORE_K4_K5)
     if host_traj is not None:
         t_h, T_h = host_traj
         common = {float(t): i for i, t in enumerate(t_h)}
@@ -1230,7 +1432,7 @@ def compare_mv_stage(mode, calls: list, cpu: mv.MVStereoSystem) -> dict:
 
 def mvstereo_phase(rigs, cpu_rig, cfg: SystemConfig, stream, card) -> dict:
     """The five MVStereo modes on the rpg rig, preset and scene: one line
-    each (mapping-tick ms, map points, error against the scene, K1-K3
+    each (mapping-tick ms, map points, error against the scene, K1-K5
     launches, peak memory) and one card-vs-CPU comparison each. Returns
     {mode name: launches}."""
     scene, ticks, frames = stream
@@ -1414,6 +1616,33 @@ def run_dataset_phase(rig: StereoRig, card, device="cuda") -> dict:
         if rec["map_points"] <= 0 or (closed and not (
                 rec["ate_m"] < CLOSED_LOOP_ATE_BAR)):
             raise AssertionError(f"run_dataset {name} failed: {rec}")
+    return launches
+
+
+def demo_phase(card, device="cuda") -> dict:
+    """examples/torch_run_synthetic.py, the port of the README's demo, at
+    its defaults (60 ticks, no backends) on the card: WORKING, its ATE
+    under its own bar (its main raises otherwise) and K4 launched (its
+    config turns regularization off, so K5 is not). Returns its
+    launches."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_run_synthetic",
+        Path(__file__).resolve().parent / "examples"
+        / "torch_run_synthetic.py")
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    for info in KERNELS.values():
+        info["module"].KERNEL.launches = 0
+    res = demo.main(["--device", device])
+    launches = {k: info["module"].KERNEL.launches
+                for k, info in KERNELS.items()}
+    rec = dict(demo="examples/torch_run_synthetic.py", card=card,
+               ticks_per_s=res["ticks"] / res["wall_s"], launches=launches,
+               **res)
+    log(rec)
+    if not (res["status"] == "WORKING" and res["map_points"] > 0
+            and launches["track"] > 0 and launches["remap"] > 0):
+        raise AssertionError(f"demo failed: {rec}")
     return launches
 
 
@@ -2172,7 +2401,7 @@ def shard_loop(rolls, device, mesh) -> dict:
 
 def shard_rank(worlds: dict, rolls, device) -> dict:
     """One rank of the sharded phase: every case once through its sharded
-    function and the sharded closed loop, with the K1-K3 launches that
+    function and the sharded closed loop, with the K1-K5 launches that
     run made (counted from 0); then, on a one-rank mesh, ms a sharded
     call against the unsharded one in this same process."""
     mesh = ps.make_mesh()
@@ -2254,7 +2483,7 @@ def sharded_phase(card, scene, ticks, frames, host_traj,
     World 2 on gloo over CUDA tensors, both ranks on this card: each case
     within tests/test_parallel.py's tolerances of the unsharded call, the
     outputs the ranks replicate equal bit for bit, the closed loop's ATE
-    under its bar. Returns the K1-K3 launches of both worlds' sharded
+    under its bar. Returns the K1-K5 launches of both worlds' sharded
     runs, summed over their ranks."""
     worlds = shard_worlds()
     rolls = [_roll_inputs(frames, ticks, r * ROLL)
@@ -2443,7 +2672,7 @@ def compare_bench_cycle(name: str, card: dict, cpu: dict) -> dict:
 def bench_phase(card) -> dict:
     """scripts/torch_bench.py on the card at bench.py's widths: its JSON
     line (the rpg and DSEC pipelines, the closed loop swept over 5 / 10 /
-    25 / 50-tick resident dispatches and the host roll path), K1-K3
+    25 / 50-tick resident dispatches and the host roll path), K1-K5
     launched in that run, each dispatch size's warm-up and capture ms,
     the closed loop gated (WORKING, finite poses, ATE under
     BENCH_ATE_BAR), and the rpg and DSEC cycles against the CPU port on
@@ -2477,7 +2706,7 @@ def bench_phase(card) -> dict:
             and all(math.isfinite(a) and a < BENCH_ATE_BAR
                     for a in ates.values())
             and min(system["by_dispatch_ticks"].values()) > 0
-            and min(launches.values()) > 0):
+            and min(launches[k] for k in UNREGULARIZED_KERNELS) > 0):
         raise AssertionError(f"bench closed loop failed: {system}, "
                              f"launches {launches}")
     rngs = {"cuda": np.random.default_rng(0), "cpu": np.random.default_rng(0)}
@@ -2579,7 +2808,18 @@ KERNELS = {
     "lm": dict(name="K2 lm_solve", module=lm,
                source="esvo_tpu_torch/csrc/lm.cu",
                replaces="esvo_tpu/ops/pallas_lm.py:57"),
+    # port-only kernels: each replaces a fused XLA scan, not a Pallas one
+    "track": dict(name="K4 track_solve", module=track,
+                  source="esvo_tpu_torch/csrc/track.cu",
+                  replaces="esvo_tpu/tracking/registration.py:283"),
+    "regularize": dict(name="K5 regularize", module=regularize_op,
+                       source="esvo_tpu_torch/csrc/regularize.cu",
+                       replaces="esvo_tpu/mapping/regularization.py:56"),
 }
+# the kernels a MappingCycle launches (every one but the tracker's K4)
+# and those of a loop without regularization (every one but K5)
+CYCLE_KERNELS = ("remap", "patches", "lm", "regularize")
+UNREGULARIZED_KERNELS = ("remap", "patches", "lm", "track")
 
 
 def main() -> int:
@@ -2613,6 +2853,10 @@ def main() -> int:
         checks[("remap", shape)] = check_remap(rig)
         checks[("patches", shape)] = check_patches(rig, s["n"])
         checks[("lm", shape)] = check_lm(rig, cfgs[shape], s["n"], s["disp"])
+        checks[("track", shape)] = check_track(rig)
+        checks[("regularize", shape)] = check_regularize(
+            rig.left.height, rig.left.width, cfgs[shape].regularizer,
+            iters=50 if shape == "rpg" else 20)
         for k in KERNELS:
             log(dict(check=KERNELS[k]["name"], shape=shape, card=card,
                      **checks[(k, shape)]))
@@ -2636,7 +2880,7 @@ def main() -> int:
             log(dict(_public(rec), card=card))
         records[name] = [r for r in records[name] if "profile" not in r]
         log(dict(slice=name, launches=launches[name]))
-        if min(launches[name].values()) == 0:
+        if min(launches[name][k] for k in CYCLE_KERNELS) == 0:
             raise AssertionError(f"{name}: a kernel never launched: "
                                  f"{launches[name]}")
     for name, recs in records.items():
@@ -2692,12 +2936,17 @@ def main() -> int:
         summary["ms_per_tracked_tick"]))
     log(resident)
     in_replays = resident["profiled_dispatch"]["kernel_launches"]
+    vs_host = resident["vs_host_path"]
     if not (resident["status"] == "WORKING"
+            and vs_host["max_t_diff_m"] == 0.0
+            and vs_host["max_R_diff_rad"] == 0.0
             and resident["rolls_since_good"] == 0
             and resident["ate_m"] < CLOSED_LOOP_ATE_BAR
             and in_replays["patches"] >= RESIDENT_R
             and in_replays["lm"] >= RESIDENT_R
-            and in_replays["remap"] >= 6 * RESIDENT_R):
+            and in_replays["remap"] >= 6 * RESIDENT_R
+            and in_replays["track"] == RESIDENT_R * ROLL
+            and in_replays["regularize"] >= RESIDENT_R):
         raise AssertionError(f"resident loop failed: {resident}")
 
     # K1 at the event matcher's windows: 15x15 patches -> 16x16 windows,
@@ -2714,6 +2963,7 @@ def main() -> int:
                                  card)
     log(dsec_em_cycle(rigs["dsec"], cfgs["dsec"], streams["dsec"], card))
     rd_launches = run_dataset_phase(rigs["rpg"], card)
+    launches["demo"] = demo_phase(card)
 
     # the event simulator, the backend functions, the closed loop with
     # both backends attached, and the accuracy campaign
@@ -2758,6 +3008,7 @@ def main() -> int:
                      sim_campaign_launches=launches["sim_campaign"][k],
                      sharded_launches=launches["sharded"][k],
                      bench_launches=launches["bench"][k],
+                     demo_launches=launches["demo"][k],
                      resident_launches_per_roll=resident[
                          "profiled_dispatch"]["launches_per_roll"][k])
         entry.update(ms=rpg["kernel_ms"], **{key: rpg[key] for key in (

@@ -1,10 +1,13 @@
 """Inverse-depth map regularization as dense windowed reductions
 (port of esvo_tpu/mapping/regularization.py).
 
-The (2r+1)^2 window is walked as shifted planes of the dense grid, in
-window row-major order (the reference's iteration order). Eager PyTorch
-runs this as ~20 small launches per offset: (2r+1)^2 = 121 offsets at the
-rpg radius, 1,681 at the DSEC radius.
+``regularize`` dispatches: on CUDA tensors it is one launch of kernel K5
+(ops/regularize.py, csrc/regularize.cu), bit for bit its plain twin
+``regularize_plain``, which CPU tensors run. The twin walks the (2r+1)^2
+window as shifted planes of the dense grid, in window row-major order
+(the reference's iteration order); eager PyTorch runs that as ~43 small
+launches an offset: (2r+1)^2 = 121 offsets at the rpg radius, 1,681 at
+the DSEC radius.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from esvo_tpu_torch.mapping.fusion import EMPTY, DepthGrid
+from esvo_tpu_torch.ops import regularize as regularize_op
 
 
 def _reg_tdist_posterior(invD_a, s2_a, nu_a, invD_b, s2_b, nu_b):
@@ -41,6 +45,21 @@ class RegularizationConfig:
 
 
 def regularize(grid: DepthGrid, cfg: RegularizationConfig) -> DepthGrid:
+    """Smooth or invalidate every occupied cell over its (2r+1)^2 window:
+    kernel K5 on CUDA tensors (which refuses a dtype other than float32
+    by raising), ``regularize_plain`` on CPU tensors."""
+    if not grid.inv_depth.is_cuda:
+        return regularize_plain(grid, cfg)
+    new_invD = regularize_op.regularize(
+        grid.occupied, grid.inv_depth, grid.variance, grid.scale2, grid.nu,
+        radius=cfg.radius, tdist=cfg.ls_norm != "l2",
+        min_neighbours=cfg.min_neighbours,
+        min_close_neighbours=cfg.min_close_neighbours)
+    return grid.replace(inv_depth=new_invD)
+
+
+def regularize_plain(grid: DepthGrid,
+                     cfg: RegularizationConfig) -> DepthGrid:
     r = cfg.radius
     H, W = grid.inv_depth.shape
     valid = grid.occupied

@@ -9,14 +9,21 @@ Sobel gradients (or forward-mode autodiff for patches larger than 1x1),
 and MAX_ITERATION one-step LM rounds over rotating batches of the point
 set with accept / reject and damping x0.3 / x5.
 
-Every product is a full float32 product: ``solve`` runs under
+``solve`` dispatches. On CUDA tensors with the analytic Jacobian in
+float32 (every preset) the whole scan is one launch of kernel K4
+(ops/track.py, csrc/track.cu). On CPU tensors it runs the plain twin
+``solve_plain``; the numerical Jacobian (``use_numerical_diff`` or a
+patch larger than 1x1) and dtypes other than float32 take
+``solve_plain`` on every device, by configuration.
+
+Every product is a full float32 product: ``solve_plain`` runs under
 utils/precision.py's ``highest_precision`` guard, which turns TF32 off for
 matmul (``torch.backends.cuda.matmul.allow_tf32 == False``) whatever the
 caller set with ``torch.set_float32_matmul_precision``, and puts the
 caller's setting back afterwards; it does not rely on PyTorch's default.
-``solve`` is a Python loop over the rounds whose body has fixed shapes,
-no host sync and no data-dependent Python branch, so that a CUDA graph
-can capture it.
+``solve_plain`` is a Python loop over the rounds whose body has fixed
+shapes, no host sync and no data-dependent Python branch, so that a CUDA
+graph can capture it; so is K4's launch.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from esvo_tpu_torch.geometry.camera import Camera
 from esvo_tpu_torch.geometry.se3 import (cayley_to_rot,
                                          orthonormalize_rotation_fast,
                                          se3_inverse)
+from esvo_tpu_torch.ops import track
 from esvo_tpu_torch.ops.interp import gather2d, patch_interpolate
 from esvo_tpu_torch.ops.linalg import solve_spd
 from esvo_tpu_torch.surface.time_surface import (gaussian_blur, sobel_x,
@@ -218,8 +226,36 @@ def pose_of(prob: RegProblem) -> torch.Tensor:
     return T
 
 
-@highest_precision()
+def kernel_takes(cfg: RegProblemConfig, dtype: torch.dtype) -> bool:
+    """Whether ``solve`` hands a CUDA problem to K4: the analytic
+    Jacobian (1x1 patches, no use_numerical_diff) in float32."""
+    numerical = cfg.use_numerical_diff \
+        or cfg.patch_size_x * cfg.patch_size_y > 1
+    return not numerical and dtype == torch.float32
+
+
 def solve(prob: RegProblem, camera: Camera, cfg: RegProblemConfig):
+    """MAX_ITERATION one-step LM rounds over rotating point batches, as
+    ``solve_plain`` runs them: kernel K4 on CUDA tensors with the
+    analytic Jacobian in float32, ``solve_plain`` on CPU tensors. The
+    numerical Jacobian and dtypes other than float32 take ``solve_plain``
+    on every device (a choice by configuration, not a fallback: a CUDA
+    tensor that K4 refuses raises). K4 sums in another order than the
+    twin's matmuls, so the two agree to float32 rounding and may take
+    different sides of a near-tied accept test."""
+    if not (prob.ts_negative.is_cuda and kernel_takes(cfg, prob.R.dtype)):
+        return solve_plain(prob, camera, cfg)
+    R, t, T, rms = track.track_solve(
+        prob.R, prob.t, prob.T_world_ref, prob.points, prob.point_valid,
+        prob.ts_negative, prob.grad_u, prob.grad_v, camera.params.P,
+        camera.mask, batch_size=cfg.batch_size,
+        max_iteration=cfg.max_iteration, huber=cfg.ls_norm == "Huber",
+        huber_threshold=cfg.huber_threshold, lm_damping=cfg.lm_damping)
+    return prob.replace(R=R, t=t), T, rms
+
+
+@highest_precision()
+def solve_plain(prob: RegProblem, camera: Camera, cfg: RegProblemConfig):
     """MAX_ITERATION one-step LM rounds over rotating point batches.
 
     Returns (problem with the final R / t, T_world_cur, rms

@@ -31,6 +31,13 @@ The event-axis sharding at world 1 on NCCL (one spawned rank): the
 surface update and the map estimate at rpg and DSEC sizes bit for bit the
 unsharded calls on the card.
 
+The port-only kernels: K4 (the tracker's LM scan) against solve_plain
+at the rpg and DSEC surfaces (pose within 1e-4 m and 1e-4 rad) and two
+launches bit for bit; K5 (regularization) bit for bit regularize_plain
+at r = 5 and r = 20 in both norms; neither solve nor regularize takes
+its twin on a CUDA tensor; one K4 launch a tick inside a resident
+replay.
+
 Run on a machine with an NVIDIA GPU:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (``tests/conftest.py`` imports JAX, which such a machine need not have).
@@ -55,7 +62,8 @@ def smoke():
                     "false)")
     import chip_smoke
     from esvo_tpu_torch.ops import _build
-    _build.build(["remap.cu", "patches.cu", "lm.cu"])
+    _build.build(["remap.cu", "patches.cu", "lm.cu", "track.cu",
+                  "regularize.cu"])
     return chip_smoke
 
 
@@ -662,3 +670,94 @@ def test_sharded_world1_nccl_is_bitwise(smoke, world1, case):
     want = smoke._host_arrays(fn(worlds[world], "cuda"))
     assert smoke._bitwise(smoke._host_arrays(got[case]), want), \
         smoke._max_diff(smoke._host_arrays(got[case]), want)
+
+
+# --- the port-only kernels: K4 (the tracker's LM scan), K5 (regularization)
+
+@pytest.mark.parametrize("shape", ["rpg", "dsec"])
+def test_track_kernel_against_twin(smoke, shape):
+    """K4 against solve_plain on the card at the shape's surface, 2000
+    map points: pose within 1e-4 m and 1e-4 rad (check_track raises
+    otherwise), and it ran as one launch."""
+    rig = smoke.make_rig(shape, "cuda")
+    before = smoke.track.KERNEL.launches
+    res = smoke.check_track(rig, iters=3)
+    assert res["t_diff_m"] < 1e-4 and res["R_diff_rad"] < 1e-4
+    assert smoke.track.KERNEL.launches > before
+
+
+@pytest.mark.parametrize("m", [1, 299, 2001])
+def test_track_kernel_repeat_launch_is_bitwise(smoke, rig, m):
+    """Two K4 launches on the same inputs give the same bits (its sums
+    add in one fixed order), and the pose agrees with the twin's."""
+    prob, cam, cfg = smoke.track_world(rig, m, seed=3)
+    a = smoke.reg.solve(prob, cam, cfg)
+    b = smoke.reg.solve(prob, cam, cfg)
+    assert all(torch.equal(x, y) for x, y in zip((a[0].R, a[0].t, a[1], a[2]),
+                                                 (b[0].R, b[0].t, b[1], b[2])))
+    t_diff, R_diff = smoke._pose_diff(a[1], smoke.reg.solve_plain(
+        prob, cam, cfg)[1])
+    assert t_diff < 1e-4 and R_diff < 1e-4
+
+
+def test_cuda_tensor_never_takes_the_k4_k5_twins(smoke, rig, monkeypatch):
+    """On CUDA tensors solve and regularize launch K4 / K5; the twins are
+    never called, and a dtype the kernel does not take raises."""
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached a twin")
+
+    prob, cam, cfg = smoke.track_world(rig, 300, seed=4)
+    grid = smoke.regularize_world(180, 240, seed=4)
+    rcfg = smoke.SystemConfig.from_dict(smoke.RPG).regularizer
+    monkeypatch.setattr(smoke.reg, "solve_plain", refuse)
+    import esvo_tpu_torch.mapping.regularization as mreg
+    monkeypatch.setattr(mreg, "regularize_plain", refuse)
+    before = (smoke.track.KERNEL.launches,
+              smoke.regularize_op.KERNEL.launches)
+    smoke.reg.solve(prob, cam, cfg)
+    mreg.regularize(grid, rcfg)
+    assert (smoke.track.KERNEL.launches,
+            smoke.regularize_op.KERNEL.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    with pytest.raises(TypeError):
+        mreg.regularize(grid.replace(variance=grid.variance.double()), rcfg)
+    with pytest.raises(TypeError):
+        smoke.track.track_solve(
+            prob.R.double(), prob.t, prob.T_world_ref, prob.points,
+            prob.point_valid, prob.ts_negative, prob.grad_u, prob.grad_v,
+            cam.params.P, cam.mask, batch_size=300, max_iteration=10,
+            huber=True, huber_threshold=50.0, lm_damping=1e-3)
+
+
+@pytest.mark.parametrize("shape", ["rpg", "dsec"])
+def test_regularize_kernel_is_bitwise(smoke, shape):
+    """K5 equals regularize_plain bit for bit on the card at the preset's
+    radius (5 at rpg, 20 at DSEC) in both norms (check_regularize raises
+    otherwise)."""
+    preset = smoke.RPG if shape == "rpg" else smoke.DSEC
+    rcfg = smoke.SystemConfig.from_dict(preset).regularizer
+    H, W = (180, 240) if shape == "rpg" else (480, 640)
+    res = smoke.check_regularize(H, W, rcfg, iters=3)
+    assert res["max_abs_err"] == 0.0 and res["radius"] in (5, 20)
+    for norm in ("Tdist", "l2"):
+        assert 0 < res["by_norm"][norm]["kept"] < res["valid"]
+
+
+def test_resident_replay_launches_k4_once_a_tick(smoke, resident):
+    """One graph replay of a roll launches K4 once a tracked tick and K5
+    once (the roll's mapping cycle), counted by kernel name."""
+    system, loop, roll = resident
+    snap = loop.state.map(torch.clone)
+    loop.stage(*roll)
+    loop.step()                         # captures on the first call
+    loop.state.copy_(snap)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        loop.step()
+        torch.cuda.synchronize()
+    loop.state.copy_(snap)
+    dev = [e for e in prof.key_averages()
+           if e.device_type == smoke.DeviceType.CUDA]
+    counts = smoke.kernel_counts(dev)
+    assert counts["track"] == smoke.ROLL
+    assert counts["regularize"] == 1

@@ -11,6 +11,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "esvo_tpu_torch").rglob("*.py"))
               + sorted((ROOT / "scripts").glob("torch_*.py"))
+              + sorted((ROOT / "examples").glob("torch_*.py"))
               + [ROOT / "chip_smoke.py"])
 # "esvo_tpu." never matches the port's own prefix "esvo_tpu_torch"
 FORBIDDEN = re.compile(r"\b(import|from)\s+(jax|flax)\b|\besvo_tpu\."
