@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 1. the card: name, count and power limit;
-2. build the five hand-written CUDA kernels from esvo_tpu_torch/csrc
+2. build the seven hand-written CUDA kernels from esvo_tpu_torch/csrc
    (nvcc, sm_90a, one process per source, all at once);
 3. each kernel against its plain PyTorch twin on the card, on the same
    inputs, at the rpg (240x180, N=1000) and DSEC (640x480, N=10000)
@@ -12,11 +12,18 @@
    cameras' inputs; the card's launch floor (a one-element fill_); K4
    (the tracker's 10 LM rounds, 2000 map points) and K5 (regularization
    at the presets' radii 5 and 20, bit for bit in both norms) at the
-   same sizes;
+   same sizes; K6 (block matching's disparity scan at the presets'
+   patch, range and smoothing, N events: argmin, cost and validity bit
+   for bit, a NaN following torch's argmin, beside the "matmul" volume)
+   and K7 (the fusion fold on a grid at each size with 4N candidates, at
+   fusion radius 0 and 1 in Tdist and l2, all 11 planes bit for bit);
 4. the WORKING mapping cycle (MappingCycle: render -> estimate ->
    rebuild) on synthetic scenes at rpg and DSEC scale, with per-stage
    times, the kernels' launch counts and the error against ground truth;
    the rpg cycle again through the CPU port (the twins) as the reference;
+   then the rpg estimates rebuilt by a float64 MappingCycle with
+   regularization (K5 takes float32 only: its twin runs, equal to the
+   CPU's);
 5. the closed loop (EsvoSystem: SGM bootstrap -> tracking <-> mapping) at
    rpg, driven as the JAX package's closed-loop benchmark drives it:
    process_ticks in rolls of 5 from INITIALIZATION to WORKING, then
@@ -30,7 +37,7 @@
    then dispatches of RESIDENT_R rolls; capture time, one graph-replayed
    roll against the same roll run eagerly, ms a tick and ticks/s beside
    the host path's, a profiled dispatch (idle share, kernels a roll,
-   K1-K5 launches inside the replays by kernel name, K4 once a tick),
+   K1-K7 launches inside the replays by kernel name, K4 once a tick),
    one replay's device span a tick beside the figures before K4 and K5,
    the ATE and the largest per-tick pose difference from the host path;
 7. the tracking solve again while the caller has set float32 matmul
@@ -41,7 +48,7 @@
 9. the mapper benchmark (MVStereoSystem) on the rpg rig, preset and
    scene in each of its five modes, with ground-truth poses, 30 ticks, a
    mapping cycle every 5: ms a mapping tick, map points, the error
-   against the scene, K1-K5 launches and peak memory, and each mode's
+   against the scene, K1-K7 launches and peak memory, and each mode's
    mapping stage replayed by the CPU port on the card's inputs; one
    event-matching cycle at DSEC scale (N = 10000, 25x25 patches);
 10. scripts/torch_run_dataset.py on a rosbag of the rpg scene that
@@ -69,10 +76,10 @@
    unsharded one), then world 2 on gloo over CUDA tensors with both
    ranks on this card (tests/test_parallel.py's tolerances, the ranks'
    replicated outputs bit for bit, the closed loop's ATE under its bar);
-   K1-K5 launches summed over the ranks;
+   K1-K7 launches summed over the ranks;
 16. the depth LM's scan (lm_kernel="xla", zncc, unwindowed) and block
    matching's "matmul" volume at rpg against the CPU port, with ms
-   beside K2's path and the "slice" volume;
+   beside K2's path and the "slice" strategy (K6 on the card);
 17. scripts/torch_bench.py at bench.py's widths (its rpg and DSEC
    pipelines, the closed loop swept over 5 / 10 / 25 / 50-tick resident
    dispatches beside the host roll path): its JSON line, the dispatch
@@ -133,6 +140,8 @@ from esvo_tpu_torch.mapping.event_matcher import (
 from esvo_tpu_torch.mapping.regularization import (regularize,
                                                    regularize_plain)
 from esvo_tpu_torch.ops import _build, lm, patches, remap, track
+from esvo_tpu_torch.ops import block_match as block_match_op
+from esvo_tpu_torch.ops import fuse as fuse_op
 from esvo_tpu_torch.ops import regularize as regularize_op
 from esvo_tpu_torch.ops.linalg import solve_spd
 from esvo_tpu_torch.parallel import sharding as ps
@@ -317,9 +326,9 @@ def _rot(ay: float, ax: float) -> np.ndarray:
     return Ry @ Rx
 
 
-def make_rig(name: str, device) -> StereoRig:
+def make_rig(name: str, device, dtype=F32) -> StereoRig:
     W, H, (fx, fy, cx, cy), D, angles, f, b = RIGS[name]
-    kw = dict(dtype=F32, device=device)
+    kw = dict(dtype=dtype, device=device)
     K = torch.tensor([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], **kw)
     cams = []
     for (ay, ax), tx in zip(angles, (0.0, -f * b)):
@@ -756,6 +765,56 @@ def regularize_world(H: int, W: int, seed: int, nu_inf_share: float = 0.2,
                         scale2=t(var * (0.5 + rng.random((H, W)))), nu=t(nu))
 
 
+def fuse_world(H: int, W: int, m: int, seed: int, nu_inf_share: float = 0.2,
+               device="cuda"):
+    """A fused grid and m candidates for the fold (kernel K7): the grid
+    as regularize_world's (2-32% occupied, denser at the bottom, a share
+    of nu infinite) with residuals, ages, sub-pixel coordinates and
+    points; the candidates' anchors crowd every 16th row and 3rd column,
+    so some pixels get more than K, and each candidate's inverse depth is set
+    against its anchor cell to hit every rule: a compatible one (fuse),
+    one 6 sigma nearer (replace, where its variance and residual are also
+    lower) or 6 sigma farther (occluded); on an empty cell, insert. A
+    tenth are invalid and a few have invD <= 0. Returns (grid,
+    candidates)."""
+    rng = np.random.default_rng(seed)
+    grid = regularize_world(H, W, seed, nu_inf_share, device)
+    t = lambda a, dt=F32: torch.tensor(a, dtype=dt, device=device)
+    gy, gx = np.mgrid[0:H, 0:W]
+    occ = grid.occupied.cpu().numpy()
+    x = np.stack([gx + 0.5, gy + 0.5], -1)
+    x[occ] += rng.uniform(-0.4, 0.4, (int(occ.sum()), 2))
+    grid = grid.replace(
+        residual=t(rng.uniform(0, 30, (H, W))),
+        age=t(rng.integers(1, 6, (H, W)), torch.int32), x=t(x),
+        p_cam=t(rng.normal(0, 2, (H, W, 3))))
+    g_inv = grid.inv_depth.cpu().numpy().astype(np.float64)
+    g_var = grid.variance.cpu().numpy().astype(np.float64)
+    row = rng.integers(0, max(H // 16, 1), m) * 16 % H
+    col = rng.integers(0, max(W // 3, 1), m) * 3 % W
+    xc = np.stack([col + rng.uniform(0, 1, m), row + rng.uniform(0, 1, m)],
+                  1)
+    cell_inv, cell_var = g_inv[row, col], g_var[row, col]
+    kind = rng.integers(0, 3, m)          # compatible, nearer, farther
+    sigma = np.sqrt(cell_var)
+    inv = np.where(cell_inv > 0, cell_inv + np.choose(
+        kind, [rng.normal(0, 0.5, m) * sigma, 6 * sigma, -6 * sigma]),
+        rng.uniform(0.2, 0.8, m))
+    inv[rng.random(m) < 0.02] = -0.1
+    var = np.where(rng.random(m) < 0.5, 0.5, 2.0) * np.where(
+        cell_inv > 0, cell_var, (0.004 + 0.01 * rng.random(m)) ** 2)
+    nu = 2.0 + 4.0 * rng.random(m)
+    nu[rng.random(m) < nu_inf_share] = np.inf
+    cand = fu.Candidates(
+        inv_depth=t(inv), variance=t(var),
+        scale2=t(var * (0.5 + rng.random(m))), nu=t(nu),
+        residual=t(rng.uniform(0, 30, m)),
+        age=t(rng.integers(0, 3, m), torch.int32), x=t(xc),
+        p_cam=t(rng.normal(0, 2, (m, 3))),
+        valid=torch.tensor(rng.random(m) > 0.1, device=device))
+    return grid, cand
+
+
 def close_pairs(grid: fu.DepthGrid, r: int) -> int:
     """(valid centre, close neighbour) pairs over the (2r+1)^2 windows:
     the pairs the Tdist fold updates on (regularize_plain's `close`)."""
@@ -807,6 +866,203 @@ def check_regularize(H: int, W: int, rcfg, iters: int = 50,
     out.update(radius=r, norm=rcfg.ls_norm, valid=n_valid, close_pairs=pairs,
                flops=flops, by_norm=res,
                shared_bytes=regularize_op.shared_bytes(r))
+    return out
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, a NaN matching a NaN in the same place (the card's
+    arithmetic gives every NaN one pattern; a copy keeps its input's)."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(
+        torch.where(na, torch.zeros_like(a), a).view(torch.int32),
+        torch.where(nb, torch.zeros_like(b), b).view(torch.int32))
+
+
+def bm_world(rig: StereoRig, n: int, disp: int, seed: int, device="cuda"):
+    """Block matching at the rig's size: _textured_pair's surfaces (a
+    `disp`-pixel shift) with a dark corner (a fifth of the columns, a
+    quarter of the rows, scaled below 1) for the noise count, and n
+    events over the whole image and 2 pixels past it (so windows clamp
+    at every border), a twentieth invalid."""
+    cam = rig.left
+    H, W = cam.height, cam.width
+    rng = np.random.default_rng(seed)
+    ts_l, ts_r = _textured_pair(rng, W, H, disp)
+    ts_l[:H // 4, :W // 5] *= 0.004
+    x = np.stack([rng.uniform(-2, W + 2, n), rng.uniform(-2, H + 2, n)], 1)
+    t = lambda a: torch.tensor(a, dtype=F32, device=device)
+    return (t(ts_l), t(ts_r), t(x),
+            torch.tensor(rng.random(n) > 0.05, device=device))
+
+
+def _bm_plain(fn):
+    """fn() with block matching's disparity scan on its plain twin."""
+    real = bm.best_disparity
+    bm.best_disparity = bm.best_disparity_plain
+    try:
+        return fn()
+    finally:
+        bm.best_disparity = real
+
+
+def check_block_match(rig: StereoRig, cfg: SystemConfig, n: int, disp: int,
+                      iters: int = 50) -> dict:
+    """K6 (block matching's disparity scan, one launch) against its twin
+    best_disparity_plain on the card, at the preset's patch, disparity
+    range and smoothing over n events of bm_world: `best`, its cost and
+    dark bit for bit on every event, twice (a repeat launch is bitwise);
+    through match_events_stats the validity, disparity, cost and the
+    failure counters equal; with a NaN in the right surface, torch's
+    argmin rule (the first NaN wins) followed. Timed beside the twin
+    ("slice") and the "matmul" volume (the nearest one-strategy
+    yardstick; no PyTorch call computes the function). Bound:
+    operations, counted from this run's events: per (event, disparity)
+    that stays inside the image, 2 wy wx + 3 wx products and sums and 14
+    more (the moments, the ZNCC, the cost, the comparison); per event
+    the right strip's column sums (3 wy (wx + D - 1)) and the left
+    window's (4 wy wx + 3 wx + 6); bytes: both surfaces once, ui, vi and
+    the three outputs."""
+    bcfg = cfg.bm
+    cam = rig.left
+    H, W = cam.height, cam.width
+    ts_l, ts_r, x, valid = bm_world(rig, n, disp, seed=21,
+                                    device=cam.mask.device)
+    args = (ts_l, ts_r, x, x, torch.zeros(n, device=x.device), valid,
+            cam.mask, rig)
+    got, gs = bm.match_events_stats(*args, bcfg)
+    want, ws = _bm_plain(lambda: bm.match_events_stats(*args, bcfg))
+    match_equal = (torch.equal(got.valid, want.valid)
+                   and _same_bits(got.disparity, want.disparity)
+                   and _same_bits(got.cost, want.cost)
+                   and {k: int(v) for k, v in gs.items()}
+                   == {k: int(v) for k, v in ws.items()})
+    wx, wy = bcfg.patch_size_x, bcfg.patch_size_y
+    hx, hy = (wx - 1) // 2, (wy - 1) // 2
+    dmin, dmax = bcfg.min_disparity, bcfg.max_disparity
+    D = dmax - dmin + 1
+    sl, sr = ts_l, ts_r
+    if bcfg.smooth_time_surface:
+        sl, sr = tsf.gaussian_blur(ts_l, 5), tsf.gaussian_blur(ts_r, 5)
+    ui = torch.clamp(torch.floor(x[:, 0]).to(torch.int64), 0, W - 1)
+    vi = torch.clamp(torch.floor(x[:, 1]).to(torch.int64), 0, H - 1)
+    kw = dict(dmin=dmin, dmax=dmax, hy=hy, hx=hx)
+
+    def kernel(a=sl, b=sr):
+        return block_match_op.best_disparity(a, b, ui, vi, **kw)
+
+    def plain(a=sl, b=sr, strategy="slice"):
+        return bm.best_disparity_plain(a, b, ui, vi, dmin, dmax, hy, hx,
+                                       strategy)
+
+    def same(a, b):
+        return all(_same_bits(p, q) for p, q in zip(a, b))
+
+    k1, k2, p1 = kernel(), kernel(), plain()
+    sr_nan = sr.clone()
+    sr_nan[::23, ::37] = float("nan")
+    kn, pn = kernel(sl, sr_nan), plain(sl, sr_nan)
+    res = dict(events=n, disparities=D, patch=[wy, wx],
+               smoothed=bcfg.smooth_time_surface,
+               bitwise=same(k1, p1), repeat_bitwise=same(k1, k2),
+               match_equal=match_equal, nan_bitwise=same(kn, pn),
+               nan_events=int(torch.isnan(kn[1]).sum()),
+               matched=int(got.valid.sum()),
+               best_differs=int((k1[0] != p1[0]).sum()),
+               counters={k: int(v) for k, v in gs.items()})
+    if not (res["bitwise"] and res["repeat_bitwise"] and match_equal
+            and res["nan_bitwise"] and 0 < res["nan_events"] < n
+            and res["matched"] > 0):
+        raise AssertionError(f"K6 differs from its twin: {res}")
+    ds = torch.arange(dmin, dmax + 1, device=ui.device)
+    inside = int(((ui[:, None] - ds - hx >= 1)
+                  & (ui[:, None] - ds + hx < W - 1)).sum())
+    flops = inside * (2 * wy * wx + 3 * wx + 14) + n * (
+        3 * wy * (wx + D - 1) + 4 * wy * wx + 3 * wx + 6)
+    b, by = bound(2 * H * W * 4 + n * (8 + 8 + 8 + 4 + 4), flops)
+    out = _times(0.0, kernel, plain, None, iters, b, by)
+    mm = timed(lambda: plain(strategy="matmul"), max(1, iters // 10))
+    out.update(res, inside_pairs=inside, flops=flops,
+               matmul_ms=mm["ms"], matmul_call_ms=mm["call_ms"],
+               shared_bytes=block_match_op.shared_bytes(wy, wx, D))
+    return out
+
+
+def check_fuse(rig: StereoRig, cfg: SystemConfig, m: int,
+               iters: int = 50) -> dict:
+    """K7 (the fusion fold, one launch) against its twin fold_slots_plain
+    on the card, on fuse_world's grid at the rig's size and m candidates:
+    at fusion radius 0 and 1, in Tdist and l2, all 11 planes bit for bit
+    (and a repeat launch), num_fused and num_dropped equal, and every
+    rule hit (fuses counted; replaces as cells whose x moved). Timed at
+    the preset's radius in Tdist. Bound: bytes, counted from this run's
+    slots: per pixel the 11 grid words and K slot ids read and 11 words
+    written, per filled slot its candidate's 8 words, the camera's 12."""
+    cam = rig.left
+    H, W = cam.height, cam.width
+    K = cfg.fusion.max_candidates_per_pixel
+    by_case, worlds = {}, {}
+    for radius in (0, 1):
+        grid, cand = worlds[radius] = fuse_world(H, W, m, seed=31 + radius,
+                                                 device=cam.mask.device)
+        for norm in ("Tdist", "l2"):
+            fcfg = fu.FusionConfig(ls_norm=norm, fusion_radius=radius,
+                                   max_candidates_per_pixel=K)
+            n0 = fuse_op.KERNEL.launches
+            got = fu.fuse_frame(grid, cand, cam, fcfg)
+            again = fu.fuse_frame(grid, cand, cam, fcfg)
+            launched = fuse_op.KERNEL.launches - n0
+            tiled, pix = fu._splat(cand, H, W, radius)
+            slot_idx, n_drop = fu._assign_slots(pix, tiled.valid,
+                                                tiled.variance, H * W, K)
+            want, n_fused = fu.fold_slots_plain(grid, tiled, slot_idx, cam,
+                                                fcfg)
+            fields = [f.name for f in dataclasses.fields(want)]
+            differ = [f for f in fields
+                      if not (_same_bits(getattr(got[0], f),
+                                         getattr(want, f))
+                              and _same_bits(getattr(again[0], f),
+                                             getattr(want, f)))]
+            rec = dict(launches=launched, fused=int(got[1]),
+                       dropped=int(got[2]),
+                       changed=int((got[0].inv_depth != grid.inv_depth)
+                                   .sum()),
+                       inserted=int((~grid.occupied & got[0].occupied)
+                                    .sum()),
+                       x_moved=int((got[0].x != grid.x).any(-1).sum()),
+                       nu_inf=int(torch.isinf(got[0].nu).sum()),
+                       differ=differ)
+            by_case[f"r{radius}_{norm}"] = rec
+            if (differ or launched != 2 or int(got[1]) != int(n_fused)
+                    or int(got[2]) != int(n_drop) or rec["fused"] == 0
+                    or rec["inserted"] == 0 or rec["x_moved"] == 0):
+                raise AssertionError(f"K7 r{radius} {norm}: {rec}")
+    radius = cfg.fusion.fusion_radius
+    fcfg = fu.FusionConfig(ls_norm="Tdist", fusion_radius=radius,
+                           max_candidates_per_pixel=K)
+    grid, cand = worlds[radius]
+    tiled, pix = fu._splat(cand, H, W, radius)
+    slot_idx, _ = fu._assign_slots(pix, tiled.valid, tiled.variance, H * W,
+                                   K)
+    ids = fu.slot_ids(slot_idx, pix.shape[0], H, W, K)
+    cam_words = fu.camera_words(cam.params.P)
+    planes = dict(invD=grid.inv_depth, var=grid.variance, s2=grid.scale2,
+                  nu=grid.nu, res=grid.residual, age=grid.age, x=grid.x,
+                  p=grid.p_cam)
+    cands = dict(invD=tiled.inv_depth, var=tiled.variance, s2=tiled.scale2,
+                 nu=tiled.nu, res=tiled.residual, age=tiled.age, x=tiled.x)
+    filled = int((ids >= 0).sum())
+    nbytes = H * W * (11 + K + 11) * 4 + filled * 8 * 4 + 12 * 4
+    b, by = bound(nbytes, 0.0)
+    out = _times(0.0,
+                 lambda: fuse_op.fold_slots(planes, cands, ids, cam_words,
+                                            tdist=True),
+                 lambda: fu.fold_slots_plain(grid, tiled, slot_idx, cam,
+                                             fcfg), None, iters, b, by)
+    out.update(radius=radius, norm="Tdist", candidates=m,
+               tiled=int(pix.shape[0]), filled_slots=filled, bytes=nbytes,
+               by_case=by_case)
     return out
 
 
@@ -880,14 +1136,16 @@ def _profiled(fn, again=None) -> dict:
 # how the profiler names each hand-written kernel (the demangled symbols
 # of csrc/*.cu: remap_one_kernel / remap_kernel<PPT, NCAM>,
 # slice_patches_kernel<RPL, VEC>, lm_kernel<KPL, TDIST>,
-# track_solve_kernel, regularize_kernel<TDIST>)
+# track_solve_kernel, regularize_kernel<TDIST>, block_match_kernel,
+# fuse_fold_kernel)
 KERNEL_NAMES = {"remap": "remap_", "patches": "slice_patches_kernel<",
                 "lm": "lm_kernel<", "track": "track_solve_kernel",
-                "regularize": "regularize_kernel<"}
+                "regularize": "regularize_kernel<",
+                "bm": "block_match_kernel", "fuse": "fuse_fold_kernel"}
 
 
 def kernel_counts(device_events) -> dict:
-    """Launches of K1-K5 among a profile's device events, by kernel name:
+    """Launches of K1-K7 among a profile's device events, by kernel name:
     the only count that sees the kernels a CUDA graph replays."""
     return {k: sum(e.count for e in device_events if pat in e.key)
             for k, pat in KERNEL_NAMES.items()}
@@ -966,6 +1224,60 @@ def run_cycle(name: str, rig: StereoRig, cfg: SystemConfig, scene,
     if torch.device(device).type == "cuda":
         out.append(dict(slice=name, profile=profile_cycle(cycle, last)))
     return out
+
+
+def regularize_dispatch(records: list[dict], scene, ticks,
+                        cfg: SystemConfig, device="cuda") -> dict:
+    """A float64 MappingCycle with regularization on the card: the rpg
+    cycle's estimates (records of run_cycle) pushed into the window of a
+    cycle on a float64 rpg rig, then rebuild_frame. K5 takes float32
+    grids only, so the float64 grid goes to regularize_plain on the card
+    (no K5 launch); the regularized grid must equal regularize_plain on
+    the CPU on the same grid (float64, elementwise: bit for bit
+    expected, gated at rtol 1e-12), and the points be finite."""
+    import esvo_tpu_torch.runtime.system as system_module
+    f64 = torch.float64
+    cycle = MappingCycle(make_rig("rpg", device, f64), cfg, device=device)
+    for rec in records:
+        cycle.push_history(_tree(rec["estimates"], lambda a: a.to(f64)
+                                 if a.is_floating_point() else a))
+    t = float(ticks[records[-1]["tick"]])
+    T = torch.tensor(interpolate_gt_pose(scene, t), dtype=f64, device=device)
+    calls = []
+    real = system_module.regularize
+
+    def recorded(grid, rcfg):
+        out = real(grid, rcfg)
+        calls.append((grid, out))
+        return out
+
+    n0 = regularize_op.KERNEL.launches
+    system_module.regularize = recorded
+    try:
+        t0 = _sync(device)
+        grid, pts, occ, _, _ = cycle.rebuild_frame(cycle.history, T)
+        ms = (_sync(device) - t0) * 1e3
+    finally:
+        system_module.regularize = real
+    k5 = regularize_op.KERNEL.launches - n0
+    before, after = calls[0]
+    want = regularize_plain(_tree(before, lambda a: a.cpu()),
+                            cfg.regularizer).inv_depth
+    got = after.inv_depth.cpu()
+    occupied = before.occupied.cpu()
+    res = dict(regularize_dispatch="rpg float64 MappingCycle",
+               dtype=str(grid.inv_depth.dtype), rebuild_ms=ms,
+               k5_launches=k5, occupied=int(occupied.sum()),
+               kept=int((occupied & (got != fu.EMPTY)).sum()),
+               bitwise=torch.equal(got, want),
+               max_abs_err=float((got - want).abs().max()),
+               points_finite=bool(torch.isfinite(pts[occ]).all()))
+    if not (grid.inv_depth.dtype == f64 and k5 == 0
+            and res["points_finite"] and 0 < res["kept"] < res["occupied"]
+            and torch.equal(got == fu.EMPTY, want == fu.EMPTY)
+            and torch.allclose(got, want, rtol=1e-12, atol=0.0)):
+        raise AssertionError(f"float64 regularization on the card: {res}")
+    return res
 
 
 def _public(rec: dict) -> dict:
@@ -1432,7 +1744,7 @@ def compare_mv_stage(mode, calls: list, cpu: mv.MVStereoSystem) -> dict:
 
 def mvstereo_phase(rigs, cpu_rig, cfg: SystemConfig, stream, card) -> dict:
     """The five MVStereo modes on the rpg rig, preset and scene: one line
-    each (mapping-tick ms, map points, error against the scene, K1-K5
+    each (mapping-tick ms, map points, error against the scene, K1-K7
     launches, peak memory) and one card-vs-CPU comparison each. Returns
     {mode name: launches}."""
     scene, ticks, frames = stream
@@ -2401,7 +2713,7 @@ def shard_loop(rolls, device, mesh) -> dict:
 
 def shard_rank(worlds: dict, rolls, device) -> dict:
     """One rank of the sharded phase: every case once through its sharded
-    function and the sharded closed loop, with the K1-K5 launches that
+    function and the sharded closed loop, with the K1-K7 launches that
     run made (counted from 0); then, on a one-rank mesh, ms a sharded
     call against the unsharded one in this same process."""
     mesh = ps.make_mesh()
@@ -2483,7 +2795,7 @@ def sharded_phase(card, scene, ticks, frames, host_traj,
     World 2 on gloo over CUDA tensors, both ranks on this card: each case
     within tests/test_parallel.py's tolerances of the unsharded call, the
     outputs the ranks replicate equal bit for bit, the closed loop's ATE
-    under its bar. Returns the K1-K5 launches of both worlds' sharded
+    under its bar. Returns the K1-K7 launches of both worlds' sharded
     runs, summed over their ranks."""
     worlds = shard_worlds()
     rolls = [_roll_inputs(frames, ticks, r * ROLL)
@@ -2672,7 +2984,7 @@ def compare_bench_cycle(name: str, card: dict, cpu: dict) -> dict:
 def bench_phase(card) -> dict:
     """scripts/torch_bench.py on the card at bench.py's widths: its JSON
     line (the rpg and DSEC pipelines, the closed loop swept over 5 / 10 /
-    25 / 50-tick resident dispatches and the host roll path), K1-K5
+    25 / 50-tick resident dispatches and the host roll path), K1-K7
     launched in that run, each dispatch size's warm-up and capture ms,
     the closed loop gated (WORKING, finite poses, ATE under
     BENCH_ATE_BAR), and the rpg and DSEC cycles against the CPU port on
@@ -2725,7 +3037,8 @@ def new_paths_phase(card, device="cuda") -> None:
     tests' tolerances (tests/test_torch_lm.py: validity and inverse depth
     rtol 2e-4 / atol 2e-5 on >= 98% of events; tests/
     test_torch_block_matching.py: validity and disparity on >= 99%, cost
-    atol 2e-4), with ms beside K2's path and the "slice" volume."""
+    atol 2e-4), with ms beside K2's path and the "slice" strategy, which
+    the card runs as kernel K6."""
     cfg = SystemConfig.from_dict(RPG)
     rigs = {"card": make_rig("rpg", device), "cpu": make_rig("rpg", "cpu")}
     rng = np.random.default_rng(7)
@@ -2815,11 +3128,17 @@ KERNELS = {
     "regularize": dict(name="K5 regularize", module=regularize_op,
                        source="esvo_tpu_torch/csrc/regularize.cu",
                        replaces="esvo_tpu/mapping/regularization.py:56"),
+    "bm": dict(name="K6 block_match", module=block_match_op,
+               source="esvo_tpu_torch/csrc/block_match.cu",
+               replaces="esvo_tpu/mapping/block_matching.py:151"),
+    "fuse": dict(name="K7 fuse", module=fuse_op,
+                 source="esvo_tpu_torch/csrc/fuse.cu",
+                 replaces="esvo_tpu/mapping/fusion.py:242"),
 }
 # the kernels a MappingCycle launches (every one but the tracker's K4)
 # and those of a loop without regularization (every one but K5)
-CYCLE_KERNELS = ("remap", "patches", "lm", "regularize")
-UNREGULARIZED_KERNELS = ("remap", "patches", "lm", "track")
+CYCLE_KERNELS = ("remap", "patches", "lm", "regularize", "bm", "fuse")
+UNREGULARIZED_KERNELS = ("remap", "patches", "lm", "track", "bm", "fuse")
 
 
 def main() -> int:
@@ -2857,6 +3176,11 @@ def main() -> int:
         checks[("regularize", shape)] = check_regularize(
             rig.left.height, rig.left.width, cfgs[shape].regularizer,
             iters=50 if shape == "rpg" else 20)
+        checks[("bm", shape)] = check_block_match(
+            rig, cfgs[shape], s["n"], s["disp"],
+            iters=50 if shape == "rpg" else 20)
+        checks[("fuse", shape)] = check_fuse(
+            rig, cfgs[shape], 4 * s["n"], iters=50 if shape == "rpg" else 20)
         for k in KERNELS:
             log(dict(check=KERNELS[k]["name"], shape=shape, card=card,
                      **checks[(k, shape)]))
@@ -2896,6 +3220,8 @@ def main() -> int:
     ref = run_cycle("rpg", cpu_rig, cfgs["rpg"], scene,
                     ticks[:SCENES["rpg"]["cycle_ticks"]], frames, "cpu")
     log(compare_to_cpu(records["rpg"], ref))
+    log(dict(regularize_dispatch(records["rpg"], scene, ticks, cfgs["rpg"]),
+             card=card))
 
     for info in KERNELS.values():
         info["module"].KERNEL.launches = 0
@@ -2946,7 +3272,9 @@ def main() -> int:
             and in_replays["lm"] >= RESIDENT_R
             and in_replays["remap"] >= 6 * RESIDENT_R
             and in_replays["track"] == RESIDENT_R * ROLL
-            and in_replays["regularize"] >= RESIDENT_R):
+            and in_replays["regularize"] >= RESIDENT_R
+            and in_replays["bm"] >= RESIDENT_R
+            and in_replays["fuse"] >= RESIDENT_R):
         raise AssertionError(f"resident loop failed: {resident}")
 
     # K1 at the event matcher's windows: 15x15 patches -> 16x16 windows,

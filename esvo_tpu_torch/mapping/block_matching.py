@@ -1,18 +1,24 @@
 """Stereo block matching over time surfaces
 (port of esvo_tpu/mapping/block_matching.py).
 
-Every event evaluates every disparity: the ZNCC cost of each pixel and
-disparity comes from separable box sums over the dense surfaces, and each
-event's D costs are gathered inside the disparity loop, so the (H, W, D)
-cube is never materialized. Two cost strategies, as in the JAX package:
+Every event evaluates every disparity, and each event keeps the argmin of
+its D ZNCC costs. ``best_disparity`` picks how, by configuration:
 
-- "slice" (and "auto", on either device): one disparity plane at a
-  time, every box sum as f32 slice-adds in the JAX package's order; no
-  matrix product (and so no TF32) is involved;
-- "matmul": C disparities at a time, the horizontal box of the
-  left-right product as one product with the banded-ones matrix Bx, in
-  full float32 (``highest_precision``). Its argmin equals the slice
-  path's; its costs agree to float32 rounding.
+- on CUDA float32 surfaces with the "slice" (or "auto") strategy and a
+  strip that fits a block, one launch of kernel K6 (ops/block_match.py,
+  csrc/block_match.cu): a block an event, bit for bit the twin below;
+- otherwise its plain twin ``best_disparity_plain``, on every device: the
+  ZNCC cost of each pixel and disparity from separable box sums over the
+  dense surfaces, each event's D costs gathered inside the disparity
+  loop, so the (H, W, D) cube is never materialized. Two cost volumes,
+  as in the JAX package:
+  - "slice" (and "auto"): one disparity plane at a time, every box sum
+    as f32 slice-adds in the JAX package's order; no matrix product (and
+    so no TF32) is involved;
+  - "matmul": C disparities at a time, the horizontal box of the
+    left-right product as one product with the banded-ones matrix Bx, in
+    full float32 (``highest_precision``). Its argmin equals the slice
+    path's; its costs agree to float32 rounding.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from esvo_tpu_torch.geometry.camera import StereoRig
+from esvo_tpu_torch.ops import block_match
 from esvo_tpu_torch.ops.interp import gather2d
 from esvo_tpu_torch.surface.time_surface import gaussian_blur
 from esvo_tpu_torch.utils.precision import highest_precision
@@ -43,8 +50,8 @@ class BlockMatchConfig:
     # both neighbours of the minimum must be valid candidates; like the
     # reference, only applied when step > 1
     check_local_minimum: bool = True
-    # "slice", "matmul", or "auto" (= "slice": JAX picks "matmul" only
-    # on a TPU)
+    # "slice", "matmul", or "auto" (= "slice", whose arithmetic kernel K6
+    # runs on the card; JAX picks "matmul" only on a TPU)
     cost_strategy: str = "auto"
 
 
@@ -186,6 +193,64 @@ def _volume_matmul(ts_left, ts_right, S_r, S_r2, m_l, sigma_l, flat,
     return torch.cat(chunks)[:D].T
 
 
+def kernel_takes(ts_left: torch.Tensor, wy: int, wx: int, n_disp: int,
+                 strategy: str) -> bool:
+    """Whether ``best_disparity`` hands CUDA surfaces to K6: the "slice"
+    (or "auto") strategy, float32 surfaces, and a (wy, wx + n_disp - 1)
+    strip that fits a block's shared memory."""
+    return (strategy != "matmul" and ts_left.dtype == torch.float32
+            and block_match.shared_bytes(wy, wx, n_disp)
+            <= block_match.MAX_SHARED_BYTES)
+
+
+def best_disparity(ts_left, ts_right, ui, vi, dmin: int, dmax: int, hy: int,
+                   hx: int, strategy: str):
+    """(best, best_cost, dark) of N events at (ui, vi): the argmin index
+    into [dmin, dmax] of each event's costs (1.0 where the disparity
+    leaves the image), its cost, and the box of (ts_left < 1) at the
+    event. Kernel K6 on CUDA surfaces that ``kernel_takes`` accepts;
+    ``best_disparity_plain`` for everything else, on every device (a
+    choice by configuration, not a fallback: a CUDA tensor that the rule
+    accepts and K6 refuses raises)."""
+    if ts_left.is_cuda and kernel_takes(ts_left, 2 * hy + 1, 2 * hx + 1,
+                                        dmax - dmin + 1, strategy):
+        return block_match.best_disparity(ts_left, ts_right, ui, vi,
+                                          dmin=dmin, dmax=dmax, hy=hy, hx=hx)
+    return best_disparity_plain(ts_left, ts_right, ui, vi, dmin, dmax, hy,
+                                hx, strategy)
+
+
+def best_disparity_plain(ts_left, ts_right, ui, vi, dmin: int, dmax: int,
+                         hy: int, hx: int, strategy: str):
+    """K6's plain twin: the dense box planes, the "slice" or "matmul"
+    volume of the N events' costs, the out-of-image mask and the
+    argmin."""
+    H, W = ts_left.shape
+    P_area = (2 * hy + 1) * (2 * hx + 1)
+    S_l = _box(ts_left, hy, hx)
+    S_l2 = _box(ts_left * ts_left, hy, hx)
+    m_l = S_l / P_area
+    sigma_l = torch.sqrt(torch.clamp(S_l2 / P_area - m_l * m_l, min=0.0)) \
+        + 1e-6
+    S_r = _box(ts_right, hy, hx)
+    S_r2 = _box(ts_right * ts_right, hy, hx)
+    dark_l = _box((ts_left < 1.0).to(ts_left.dtype), hy, hx)
+
+    flat = vi * W + ui
+    volume = _volume_matmul if strategy == "matmul" else _volume_slice
+    cost_vol = volume(ts_left, ts_right, S_r, S_r2, m_l, sigma_l, flat,
+                      dmin, dmax, hy, hx)                     # (N, D)
+    dark = dark_l.reshape(-1)[flat]
+
+    ds = torch.arange(dmin, dmax + 1, device=ui.device)[None, :]
+    ok_vol = (ui[:, None] - ds - hx >= 1) & (ui[:, None] - ds + hx < W - 1)
+    cost_vol = torch.where(ok_vol, cost_vol, torch.ones_like(cost_vol))
+
+    best = torch.argmin(cost_vol, dim=1)
+    best_cost = torch.gather(cost_vol, 1, best[:, None])[:, 0]
+    return best, best_cost, dark
+
+
 def _match_horizontal(ts_left, ts_right, x_rect, t, valid, mask, rig, cfg,
                       swap_patch: bool):
     H, W = ts_left.shape
@@ -213,38 +278,23 @@ def _match_horizontal(ts_left, ts_right, x_rect, t, valid, mask, rig, cfg,
         & (ui + hx < W - 1) & (vi + hy < H - 1)
 
     P_area = wx * wy
-    S_l = _box(ts_left, hy, hx)
-    S_l2 = _box(ts_left * ts_left, hy, hx)
-    m_l = S_l / P_area
-    sigma_l = torch.sqrt(torch.clamp(S_l2 / P_area - m_l * m_l, min=0.0)) \
-        + 1e-6
-    S_r = _box(ts_right, hy, hx)
-    S_r2 = _box(ts_right * ts_right, hy, hx)
-    dark_l = _box((ts_left < 1.0).to(ts_left.dtype), hy, hx)
-
-    flat = vi * W + ui
-    volume = _volume_matmul if cfg.cost_strategy == "matmul" \
-        else _volume_slice
-    cost_vol = volume(ts_left, ts_right, S_r, S_r2, m_l, sigma_l, flat,
-                      dmin, dmax, hy, hx)                     # (N, D)
-    dark = dark_l.reshape(-1)[flat]
+    best, best_cost, dark = best_disparity(ts_left, ts_right, ui, vi, dmin,
+                                           dmax, hy, hx, cfg.cost_strategy)
     noise_low = inb & (dark > 0.95 * P_area)
     inb = inb & ~noise_low
 
-    ds = torch.arange(dmin, dmax + 1, device=ui.device)[None, :]
-    ok_vol = (ui[:, None] - ds - hx >= 1) & (ui[:, None] - ds + hx < W - 1)
-    cost_vol = torch.where(ok_vol, cost_vol, torch.ones_like(cost_vol))
+    def ok_at(idx):
+        """The out-of-image mask of best_disparity at disparity index
+        idx."""
+        d = idx + dmin
+        return (ui - d - hx >= 1) & (ui - d + hx < W - 1)
 
-    best = torch.argmin(cost_vol, dim=1)
-    best_cost = torch.gather(cost_vol, 1, best[:, None])[:, 0]
     best_disp = (best + dmin).to(ts_left.dtype)
-    best_ok = torch.gather(ok_vol, 1, best[:, None])[:, 0]
+    best_ok = ok_at(best)
     D = dmax - dmin + 1
     if cfg.check_local_minimum and cfg.step > 1:
-        lo_ok = (best >= 1) & torch.gather(
-            ok_vol, 1, torch.clamp(best - 1, min=0)[:, None])[:, 0]
-        hi_ok = (best <= D - 2) & torch.gather(
-            ok_vol, 1, torch.clamp(best + 1, max=D - 1)[:, None])[:, 0]
+        lo_ok = (best >= 1) & ok_at(torch.clamp(best - 1, min=0))
+        hi_ok = (best <= D - 2) & ok_at(torch.clamp(best + 1, max=D - 1))
         local_min_ok = lo_ok & hi_ok
     else:
         local_min_ok = torch.ones_like(best_ok)

@@ -7,7 +7,10 @@
 3. candidates are ordered by (pixel, variance, original index) — two
    stable sorts — and the best K per pixel go to per-pixel slots;
 4. a K-step fold applies the reference's per-pixel rules (insert /
-   compatible fuse / occlusion / replace) as (H, W) elementwise math.
+   compatible fuse / occlusion / replace): on a CUDA float32 grid one
+   launch of kernel K7 (ops/fuse.py, csrc/fuse.cu), one thread a pixel,
+   bit for bit its plain twin ``fold_slots_plain``, which runs everything
+   else as (H, W) elementwise math.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from esvo_tpu_torch._device import constant, resolve_device
 from esvo_tpu_torch.geometry.camera import (Camera, cam_to_world, inv3,
                                             world_to_cam)
 from esvo_tpu_torch.mapping.depth_refinement import DepthEstimates
+from esvo_tpu_torch.ops import fuse as fuse_op
 
 EMPTY = -1.0
 # occupancy threshold shared by DepthGrid.occupied and the fuse fold
@@ -211,16 +215,67 @@ def _scatter_slots(slot_idx, src, H: int, W: int, K: int) -> torch.Tensor:
     return buf[:-1].reshape(K, H, W)
 
 
+def slot_ids(slot_idx, M: int, H: int, W: int, K: int) -> torch.Tensor:
+    """(K, H, W) int32: slot k of pixel q holds the id of its candidate
+    among the M tiled ones, or -1 (the dropped ones land in a spare cell
+    that is cut off)."""
+    dev = slot_idx.device
+    ids = torch.full((K * H * W + 1,), -1, dtype=torch.int32, device=dev)
+    ids[slot_idx] = torch.arange(M, dtype=torch.int32, device=dev)
+    return ids[:-1].view(K, H, W)
+
+
+def camera_words(P: torch.Tensor) -> torch.Tensor:
+    """The 12 words K7 back-projects with: inv3(P[:, :3]) row-major,
+    then P[:, 3] (on P's device: no host copy)."""
+    return torch.cat([inv3(P[:, :3]).reshape(-1), P[:, 3]])
+
+
+def fold_takes(grid: DepthGrid) -> bool:
+    """Whether ``fuse_frame`` hands a CUDA grid to K7: a float32 grid
+    (a float32 grid whose other planes or candidates are not float32
+    reaches K7's checks and raises)."""
+    return grid.inv_depth.dtype == torch.float32
+
+
 def fuse_frame(grid: DepthGrid, cand: Candidates, camera: Camera,
                cfg: FusionConfig):
     """Fuse propagated candidates into the grid: the reference's
     per-pixel rules on the best K candidates per pixel, in
-    variance-ascending order. Returns (grid, num_fusions, num_dropped)."""
+    variance-ascending order. Returns (grid, num_fusions, num_dropped).
+    The splat and the slot sort run in torch; the fold is kernel K7 on a
+    CUDA grid that ``fold_takes`` accepts and ``fold_slots_plain``
+    otherwise, on every device."""
     H, W = grid.inv_depth.shape
     K = cfg.max_candidates_per_pixel
     tiled, pix = _splat(cand, H, W, cfg.fusion_radius)
     slot_idx, num_dropped = _assign_slots(pix, tiled.valid, tiled.variance,
                                           H * W, K)
+    if not (grid.inv_depth.is_cuda and fold_takes(grid)):
+        grid, num_fused = fold_slots_plain(grid, tiled, slot_idx, camera, cfg)
+        return grid, num_fused, num_dropped
+    out, num_fused = fuse_op.fold_slots(
+        dict(invD=grid.inv_depth, var=grid.variance, s2=grid.scale2,
+             nu=grid.nu, res=grid.residual, age=grid.age, x=grid.x,
+             p=grid.p_cam),
+        dict(invD=tiled.inv_depth, var=tiled.variance, s2=tiled.scale2,
+             nu=tiled.nu, res=tiled.residual,
+             age=tiled.age.to(torch.int32), x=tiled.x),
+        slot_ids(slot_idx, pix.shape[0], H, W, K),
+        camera_words(camera.params.P), tdist=cfg.ls_norm == "Tdist")
+    grid = DepthGrid(inv_depth=out["invD"], variance=out["var"],
+                     scale2=out["s2"], nu=out["nu"], residual=out["res"],
+                     age=out["age"], x=out["x"], p_cam=out["p"])
+    return grid, num_fused, num_dropped
+
+
+def fold_slots_plain(grid: DepthGrid, tiled: Candidates, slot_idx,
+                     camera: Camera, cfg: FusionConfig):
+    """K7's plain twin: scatter the 8 channels of the kept candidates to
+    their (K, H, W) slots, then fold the K slots into the grid as (H, W)
+    elementwise math. Returns (grid, num_fusions)."""
+    H, W = grid.inv_depth.shape
+    K = cfg.max_candidates_per_pixel
     dt = tiled.inv_depth.dtype
     buf = [_scatter_slots(slot_idx, a.to(dt), H, W, K) for a in (
         tiled.inv_depth, tiled.variance, tiled.scale2, tiled.nu,
@@ -228,7 +283,7 @@ def fuse_frame(grid: DepthGrid, cand: Candidates, camera: Camera,
 
     P = camera.params.P
     tdist = cfg.ls_norm == "Tdist"
-    num_fused = torch.zeros((), dtype=torch.int64, device=pix.device)
+    num_fused = torch.zeros((), dtype=torch.int64, device=slot_idx.device)
     g = {
         "invD": grid.inv_depth, "var": grid.variance, "s2": grid.scale2,
         "nu": grid.nu, "res": grid.residual, "age": grid.age,
@@ -315,7 +370,7 @@ def fuse_frame(grid: DepthGrid, cand: Candidates, camera: Camera,
         residual=g["res"], age=g["age"],
         x=torch.stack([g["x0"], g["x1"]], dim=-1),
         p_cam=torch.stack([g["p0"], g["p1"], g["p2"]], dim=-1))
-    return grid, num_fused, num_dropped
+    return grid, num_fused
 
 
 def naive_fuse_frame(grid: DepthGrid, cand: Candidates, camera: Camera,

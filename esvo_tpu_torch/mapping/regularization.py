@@ -1,9 +1,10 @@
 """Inverse-depth map regularization as dense windowed reductions
 (port of esvo_tpu/mapping/regularization.py).
 
-``regularize`` dispatches: on CUDA tensors it is one launch of kernel K5
-(ops/regularize.py, csrc/regularize.cu), bit for bit its plain twin
-``regularize_plain``, which CPU tensors run. The twin walks the (2r+1)^2
+``regularize`` dispatches by ``kernel_takes``: a CUDA float32 grid whose
+window's halo fits a block is one launch of kernel K5 (ops/regularize.py,
+csrc/regularize.cu), bit for bit its plain twin ``regularize_plain``,
+which runs every other grid, on every device. The twin walks the (2r+1)^2
 window as shifted planes of the dense grid, in window row-major order
 (the reference's iteration order); eager PyTorch runs that as ~43 small
 launches an offset: (2r+1)^2 = 121 offsets at the rpg radius, 1,681 at
@@ -44,11 +45,21 @@ class RegularizationConfig:
     min_close_neighbours: int = 8
 
 
+def kernel_takes(grid: DepthGrid, cfg: RegularizationConfig) -> bool:
+    """Whether ``regularize`` hands a CUDA grid to K5: a float32 inverse
+    depth, and a radius whose halo fits a block's shared memory."""
+    return (grid.inv_depth.dtype == torch.float32
+            and regularize_op.shared_bytes(cfg.radius)
+            <= regularize_op.MAX_SHARED_BYTES)
+
+
 def regularize(grid: DepthGrid, cfg: RegularizationConfig) -> DepthGrid:
     """Smooth or invalidate every occupied cell over its (2r+1)^2 window:
-    kernel K5 on CUDA tensors (which refuses a dtype other than float32
-    by raising), ``regularize_plain`` on CPU tensors."""
-    if not grid.inv_depth.is_cuda:
+    kernel K5 on a CUDA grid that ``kernel_takes`` accepts (float32
+    inverse depth, a halo that fits a block), ``regularize_plain`` for
+    every other grid, on every device (a choice by configuration, not a
+    fallback: a float32 grid whose other planes K5 refuses raises)."""
+    if not (grid.inv_depth.is_cuda and kernel_takes(grid, cfg)):
         return regularize_plain(grid, cfg)
     new_invD = regularize_op.regularize(
         grid.occupied, grid.inv_depth, grid.variance, grid.scale2, grid.nu,

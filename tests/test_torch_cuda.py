@@ -36,7 +36,12 @@ at the rpg and DSEC surfaces (pose within 1e-4 m and 1e-4 rad) and two
 launches bit for bit; K5 (regularization) bit for bit regularize_plain
 at r = 5 and r = 20 in both norms; neither solve nor regularize takes
 its twin on a CUDA tensor; one K4 launch a tick inside a resident
-replay.
+replay. A float64 grid regularizes on the card through regularize_plain
+(K5 takes float32 only), equal to the CPU's. K6 (block matching's
+disparity scan) and K7 (the fusion fold) bit for bit their twins at the
+rpg and DSEC shapes (chip_smoke's checks), bitwise across repeat
+launches; neither match_events_stats nor fuse_frame takes its twin on a
+CUDA float32 tensor; one K6 and one K7 launch inside a resident replay.
 
 Run on a machine with an NVIDIA GPU:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
@@ -63,7 +68,7 @@ def smoke():
     import chip_smoke
     from esvo_tpu_torch.ops import _build
     _build.build(["remap.cu", "patches.cu", "lm.cu", "track.cu",
-                  "regularize.cu"])
+                  "regularize.cu", "block_match.cu", "fuse.cu"])
     return chip_smoke
 
 
@@ -761,3 +766,98 @@ def test_resident_replay_launches_k4_once_a_tick(smoke, resident):
     counts = smoke.kernel_counts(dev)
     assert counts["track"] == smoke.ROLL
     assert counts["regularize"] == 1
+    assert counts["bm"] == 1 and counts["fuse"] == 1
+
+
+def test_float64_grid_regularizes_through_the_twin(smoke):
+    """A float64 grid on the card goes to regularize_plain (K5 takes
+    float32 only): no K5 launch, and the same inverse depths as
+    regularize_plain on the CPU (float64 elementwise: bit for bit)."""
+    import dataclasses as dc
+    import esvo_tpu_torch.mapping.regularization as mreg
+    rcfg = smoke.SystemConfig.from_dict(smoke.RPG).regularizer
+    grid = smoke.regularize_world(180, 240, seed=5)
+    g64 = grid.replace(**{f.name: getattr(grid, f.name).double()
+                          for f in dc.fields(grid)
+                          if getattr(grid, f.name).is_floating_point()})
+    before = smoke.regularize_op.KERNEL.launches
+    got = mreg.regularize(g64, rcfg).inv_depth
+    assert smoke.regularize_op.KERNEL.launches == before
+    want = mreg.regularize_plain(smoke._tree(g64, lambda a: a.cpu()),
+                                 rcfg).inv_depth
+    assert got.dtype == torch.float64 and torch.equal(got.cpu(), want)
+
+
+# --- K6 (block matching's disparity scan) and K7 (the fusion fold)
+
+_SHAPES = {"rpg": (1000, 8), "dsec": (10000, 40)}
+
+
+@pytest.mark.parametrize("shape", ["rpg", "dsec"])
+def test_block_match_kernel_is_bitwise(smoke, shape):
+    """K6 equals best_disparity_plain bit for bit on every event at the
+    preset's patch, range and smoothing, and match_events_stats'
+    validity, costs and counters equal the twin's (check_block_match
+    raises otherwise)."""
+    rig = smoke.make_rig(shape, "cuda")
+    cfg = smoke.SystemConfig.from_dict(smoke.RPG if shape == "rpg"
+                                       else smoke.DSEC)
+    n, disp = _SHAPES[shape]
+    res = smoke.check_block_match(rig, cfg, n, disp, iters=3)
+    assert res["bitwise"] and res["match_equal"] and res["nan_bitwise"]
+    assert res["matched"] > 0.3 * n
+
+
+@pytest.mark.parametrize("shape", ["rpg", "dsec"])
+def test_fuse_kernel_is_bitwise(smoke, shape):
+    """K7 equals fold_slots_plain bit for bit in all 11 planes, with the
+    same fuse and drop counts, at fusion radius 0 and 1 in Tdist and l2
+    (check_fuse raises otherwise)."""
+    rig = smoke.make_rig(shape, "cuda")
+    cfg = smoke.SystemConfig.from_dict(smoke.RPG if shape == "rpg"
+                                       else smoke.DSEC)
+    res = smoke.check_fuse(rig, cfg, 4 * _SHAPES[shape][0], iters=3)
+    assert all(not c["differ"] for c in res["by_case"].values())
+
+
+def test_k6_k7_repeat_launch_is_bitwise(smoke, rig):
+    """Two launches of each kernel on the same inputs give the same
+    bits."""
+    ts_l, ts_r, x, _ = smoke.bm_world(rig, 2000, 8, seed=4)
+    ui = torch.clamp(torch.floor(x[:, 0]).long(), 0, 239)
+    vi = torch.clamp(torch.floor(x[:, 1]).long(), 0, 179)
+    kw = dict(dmin=1, dmax=40, hy=3, hx=7)
+    a = smoke.block_match_op.best_disparity(ts_l, ts_r, ui, vi, **kw)
+    b = smoke.block_match_op.best_disparity(ts_l, ts_r, ui, vi, **kw)
+    assert all(smoke._same_bits(p, q) for p, q in zip(a, b))
+    grid, cand = smoke.fuse_world(180, 240, 4000, seed=4)
+    cfg = smoke.fu.FusionConfig(fusion_radius=1)
+    g1, n1, d1 = smoke.fu.fuse_frame(grid, cand, rig.left, cfg)
+    g2, n2, d2 = smoke.fu.fuse_frame(grid, cand, rig.left, cfg)
+    assert int(n1) == int(n2) > 0 and int(d1) == int(d2)
+    assert all(smoke._same_bits(getattr(g1, f), getattr(g2, f))
+               for f in ("inv_depth", "variance", "scale2", "nu",
+                         "residual", "age", "x", "p_cam"))
+
+
+def test_cuda_tensor_never_takes_the_k6_k7_twins(smoke, rig, monkeypatch):
+    """On CUDA float32 tensors match_events_stats ("auto" and "slice")
+    launches K6 once a call and fuse_frame K7 once a call; the twins are
+    never called."""
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached a twin")
+
+    ts_l, ts_r, x, valid = smoke.bm_world(rig, 1000, 8, seed=5)
+    grid, cand = smoke.fuse_world(180, 240, 4000, seed=5)
+    monkeypatch.setattr(smoke.bm, "best_disparity_plain", refuse)
+    monkeypatch.setattr(smoke.fu, "fold_slots_plain", refuse)
+    args = (ts_l, ts_r, x, x, torch.zeros(1000, device="cuda"), valid,
+            rig.left.mask, rig)
+    before = (smoke.block_match_op.KERNEL.launches,
+              smoke.fuse_op.KERNEL.launches)
+    for strategy in ("auto", "slice"):
+        smoke.bm.match_events_stats(*args, smoke.bm.BlockMatchConfig(
+            cost_strategy=strategy))
+    smoke.fu.fuse_frame(grid, cand, rig.left, smoke.fu.FusionConfig())
+    assert (smoke.block_match_op.KERNEL.launches,
+            smoke.fuse_op.KERNEL.launches) == (before[0] + 2, before[1] + 1)

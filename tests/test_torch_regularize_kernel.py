@@ -126,3 +126,36 @@ def test_wrapper_checks_the_halo_and_refuses_cpu_tensors():
         regularize_op.regularize(**_wrapper_args(), radius=5, tdist=True,
                                  min_neighbours=8, min_close_neighbours=8)
     assert regularize_op.KERNEL.launches == before
+
+
+def test_kernel_takes_float32_and_a_halo_that_fits(monkeypatch):
+    """K5's dispatch rule: a float32 inverse depth and a radius whose
+    halo fits a block (48 does, 49 does not) take K5; float64 takes the
+    twin on every device (here through ``regularize``, which never
+    reaches the wrapper); a float32 grid whose other planes are float64
+    is taken by the rule and refused by the wrapper's checks."""
+    _, gt = _grids(_planes(3, 0.2))
+    cfg = treg.RegularizationConfig(radius=20, min_neighbours=32,
+                                    min_close_neighbours=32)
+    assert treg.kernel_takes(gt, cfg)
+    assert treg.kernel_takes(gt, treg.RegularizationConfig(radius=48))
+    assert not treg.kernel_takes(gt, treg.RegularizationConfig(radius=49))
+    g64 = gt.replace(**{k: getattr(gt, k).double() for k in (
+        "inv_depth", "variance", "scale2", "nu")})
+    assert not treg.kernel_takes(g64, cfg)
+
+    def refuse(*a, **kw):
+        raise AssertionError("a float64 grid reached K5's wrapper")
+
+    monkeypatch.setattr(regularize_op, "regularize", refuse)
+    small = treg.RegularizationConfig(radius=3, min_neighbours=4,
+                                      min_close_neighbours=3)
+    got = treg.regularize(g64, small).inv_depth
+    assert got.dtype == torch.float64
+    assert torch.equal(got, treg.regularize_plain(g64, small).inv_depth)
+    mixed = gt.replace(variance=gt.variance.double())
+    assert treg.kernel_takes(mixed, cfg)
+    with pytest.raises(TypeError):
+        regularize_op.check_inputs(mixed.occupied, mixed.inv_depth,
+                                   mixed.variance, mixed.scale2, mixed.nu,
+                                   cfg.radius)
