@@ -607,6 +607,12 @@ def ptxas_report(log: str) -> dict[str, dict]:
             m = re.search(r"slice_patches_kernelILi(\d+)ELi(\d+)E", cur)
             if m:   # K1's, as patches.kernel_info names them
                 cur = f"slice_patches_kernel<{m[1]}, {m[2]}>"
+            m = re.search(r"regularize_kernelILb([01])E", cur)
+            if m:   # K5's, as regularize_op.kernel_info names them
+                cur = (f"regularize_kernel<"
+                       f"{'true' if m[1] == '1' else 'false'}>")
+            if "track_solve_kernel" in cur:    # K4's one kernel
+                cur = "track_solve_kernel"
             fns[cur] = {}
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -641,12 +647,15 @@ def lm_plan(kw: dict, n: int) -> dict:
                 smem_bytes_per_block=info["smem_bytes"], buffering="single")
 
 
-def track_world(rig: StereoRig, m: int, seed: int, device="cuda"):
+def track_world(rig: StereoRig, m: int, seed: int, device="cuda",
+                n_valid: int | None = None):
     """A tracking problem at the rig's size: m map points at 1.5-4 m (a
-    tenth of them invalid), an edge surface (255 at the points'
-    projections from a true pose a small motion away, a Gaussian
-    fall-off of 2.5 px) through the tracker's blur and Sobel, and the
-    identity as the guess. Returns (problem, camera, config)."""
+    tenth of them invalid; with n_valid, the first n_valid valid and the
+    rest not, as a map of n_valid points in m slots), an edge surface
+    (255 at the points' projections from a true pose a small motion
+    away, a Gaussian fall-off of 2.5 px) through the tracker's blur and
+    Sobel, and the identity as the guess. Returns (problem, camera,
+    config)."""
     rng = np.random.default_rng(seed)
     cam = rig.left
     H, W = cam.height, cam.width
@@ -677,6 +686,8 @@ def track_world(rig: StereoRig, m: int, seed: int, device="cuda"):
     ts = torch.tensor(255.0 * np.exp(-d2 / (2 * 2.5 ** 2)), dtype=F32,
                       device=device)
     valid = torch.tensor(rng.random(m) > 0.1, device=device)
+    if n_valid is not None:
+        valid = torch.arange(m, device=device) < n_valid
     cfg = reg.RegProblemConfig(**RPG["tracker"])
     eye = torch.eye(4, dtype=F32, device=device)
     prob = reg.make_problem(eye, eye, torch.tensor(pts, dtype=F32,
@@ -691,28 +702,35 @@ def _pose_diff(Ta: torch.Tensor, Tb: torch.Tensor) -> tuple[float, float]:
             pose_angle(a[:3, :3], b[:3, :3]))
 
 
-def check_track(rig: StereoRig, m: int = 2000, iters: int = 200,
-                device="cuda") -> dict:
-    """K4 (one launch: the tracker's 10 LM rounds) against its twin
-    solve_plain on the card, on the same problem: the final pose within
-    1e-4 m and 1e-4 rad (tests/test_torch_tracking.py's tolerance; the
-    rounds' accept tests may fall otherwise on near-ties, so the rounds
-    whose rms differs by more than 1e-3 relative are counted, not
-    gated). Two launches must agree bit for bit. Timed through
-    ops/track.py's wrapper on contiguous inputs, so the time is K4's."""
-    prob, cam, cfg = track_world(rig, m, seed=7, device=device)
+def _track_against_twin(rig: StereoRig, m: int, n_valid, device):
+    """K4 and solve_plain on one problem: two launches bit for bit, the
+    final pose within 1e-4 m and 1e-4 rad (tests/test_torch_tracking.py's
+    tolerance; the rounds' accept tests may fall otherwise on near-ties,
+    so the rounds whose rms differs by more than 1e-3 relative are
+    counted, not gated). Returns (problem, camera, config, fields)."""
+    prob, cam, cfg = track_world(rig, m, seed=7, device=device,
+                                 n_valid=n_valid)
     got = reg.solve(prob, cam, cfg)
     again = reg.solve(prob, cam, cfg)
-    if not (torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])):
+    if not all(torch.equal(a, b) for a, b in zip(
+            (got[0].R, got[0].t, got[1], got[2]),
+            (again[0].R, again[0].t, again[1], again[2]))):
         raise AssertionError("K4: two launches on the same inputs differ")
     want = reg.solve_plain(prob, cam, cfg)
     t_diff, R_diff = _pose_diff(got[1], want[1])
     rms_k, rms_p = got[2].cpu().numpy(), want[2].cpu().numpy()
-    rounds_differ = int((np.abs(rms_k - rms_p)
-                         > 1e-3 * np.abs(rms_p)).sum())
     if not (t_diff < 1e-4 and R_diff < 1e-4):
-        raise AssertionError(f"K4 differs from its twin: {t_diff} m, "
-                             f"{R_diff} rad, rms {rms_k} vs {rms_p}")
+        raise AssertionError(f"K4 differs from its twin ({m} points, "
+                             f"{n_valid} valid): {t_diff} m, {R_diff} rad, "
+                             f"rms {rms_k} vs {rms_p}")
+    fields = dict(t_diff_m=t_diff, R_diff_rad=R_diff,
+                  rounds_rms_differ=int((np.abs(rms_k - rms_p)
+                                         > 1e-3 * np.abs(rms_p)).sum()),
+                  rms_kernel=rms_k.tolist(), rms_twin=rms_p.tolist())
+    return prob, cam, cfg, fields
+
+
+def _track_args(prob, cam, cfg, **over) -> tuple[list, dict]:
     args = [a.contiguous() for a in (prob.R, prob.t, prob.T_world_ref,
                                      prob.points, prob.point_valid,
                                      prob.ts_negative, prob.grad_u,
@@ -721,41 +739,118 @@ def check_track(rig: StereoRig, m: int = 2000, iters: int = 200,
               huber=cfg.ls_norm == "Huber",
               huber_threshold=cfg.huber_threshold,
               lm_damping=cfg.lm_damping)
-    M, K = prob.points.shape[0], cfg.max_iteration
-    B = min(cfg.batch_size, M)
-    nb = max(M // cfg.batch_size, 1)
-    starts = {min((it % nb) * cfg.batch_size, M - B) for it in range(K)}
-    touched = len({i for s in starts for i in range(s, s + B)})
-    # bytes: each point of the visited batches once (12 B + its valid
-    # byte), and per point and round the taps the three passes need (4
-    # of the negative surface for the cost, 4 of each gradient for the
-    # Jacobian, 4 for the trial cost: 16 floats) and 3 mask bytes; the
-    # outputs. flops per point and round, counted from track.cu: the two
-    # residuals (~50 each), the Jacobian (~92), the 33 running sums
-    # (~58); per round the serial 6x6 algebra (~400).
-    nbytes = touched * 13 + K * B * (16 * 4 + 3) + (9 + 3 + 16 + K) * 4
-    flops = K * B * 250 + K * 400
+    kw.update(over)
+    return args, kw
+
+
+def _track_work(prob, batch_size: int, K: int) -> tuple[int, int, int]:
+    """(bytes, flops, rounds whose batch holds a valid point) of one K4
+    launch on this problem: each point of the visited non-empty batches
+    once (12 B + its valid byte), the valid byte of the other visited
+    points, and per point and non-empty round the taps the
+    three passes need (4 of the negative surface for the cost, 4 of each
+    gradient for the Jacobian, 4 for the trial cost: 16 floats) and 3
+    mask bytes; the outputs. flops per point and non-empty round,
+    counted from track.cu: the two residuals (~50 each), the Jacobian
+    (~92), the 33 running sums (~58); per non-empty round the serial 6x6
+    algebra (~400). An empty round reads and computes nothing."""
+    M = prob.points.shape[0]
+    B = min(batch_size, M)
+    nb = max(M // batch_size, 1)
+    starts = [min((it % nb) * batch_size, M - B) for it in range(K)]
+    valid = prob.point_valid.cpu().numpy()
+    full = [s for s in starts if valid[s:s + B].any()]
+    used = {i for s in set(full) for i in range(s, s + B)}
+    seen = {i for s in set(starts) for i in range(s, s + B)}
+    nbytes = len(used) * 13 + len(seen - used) + len(full) * B * (16 * 4 + 3) \
+        + (28 + K) * 4
+    return nbytes, len(full) * (B * 250 + 400), len(full)
+
+
+def check_track(rig: StereoRig, m: int = 2000, iters: int = 200,
+                device="cuda", partial_valid: int = 600) -> dict:
+    """K4 (one launch: the tracker's 10 LM rounds) against its twin
+    solve_plain on the card (_track_against_twin) on two problems: m map
+    points (a tenth invalid), and a map of `partial_valid` points in the
+    same m slots (at 600 of 2000, 6 of the 10 rounds find no valid
+    point), each timed. The split of the full problem's time: K4 at
+    batch 32 against 300, and at 1 round against 10. Timed through
+    ops/track.py's wrapper on contiguous inputs, so the time is K4's."""
+    prob, cam, cfg, fields = _track_against_twin(rig, m, None, device)
+    args, kw = _track_args(prob, cam, cfg)
+    K = cfg.max_iteration
+    nbytes, flops, _ = _track_work(prob, cfg.batch_size, K)
     b, by = bound(nbytes, flops)
-    res = _times(max(t_diff, R_diff),
+    res = _times(max(fields["t_diff_m"], fields["R_diff_rad"]),
                  lambda: track.track_solve(*args, **kw),
                  lambda: reg.solve_plain(prob, cam, cfg), None, iters, b, by)
-    res.update(t_diff_m=t_diff, R_diff_rad=R_diff, rounds=K,
-               rounds_rms_differ=rounds_differ, points=M, batch=B,
-               bytes=nbytes, flops=flops, rms_kernel=rms_k.tolist(),
-               rms_twin=rms_p.tolist())
+    res.update(fields, rounds=K, points=m, batch=min(cfg.batch_size, m),
+               bytes=nbytes, flops=flops)
+    split = {}
+    for name, over in (("b300_k10", {}), ("b32_k10", dict(batch_size=32)),
+                       ("b300_k1", dict(max_iteration=1))):
+        a, k = _track_args(prob, cam, cfg, **over)
+        split[name] = timed(lambda: track.track_solve(*a, **k), iters)["ms"]
+    res["split_ms"] = split
+
+    pprob, pcam, pcfg, pfields = _track_against_twin(rig, m, partial_valid,
+                                                     device)
+    a, k = _track_args(pprob, pcam, pcfg)
+    pbytes, pflops, full_rounds = _track_work(pprob, pcfg.batch_size, K)
+    pb, pby = bound(pbytes, pflops)
+    t = timed(lambda: track.track_solve(*a, **k), iters)
+    res["partial_map"] = dict(
+        pfields, valid_points=partial_valid, empty_rounds=K - full_rounds,
+        kernel_ms=t["ms"], call_ms=t["call_ms"], bound_ms=pb, bound_by=pby,
+        bytes=pbytes, flops=pflops)
     return res
 
 
+def k4_plan() -> dict:
+    """K4's registers, local bytes and shared memory (CUDA runtime),
+    spills (ptxas), and its one block."""
+    info = track.kernel_info()
+    rep = ptxas_report(_build.BUILD_LOG.get("track.cu", "")).get(
+        info["name"], {})
+    return dict(info, spill_stores=rep.get("spill_stores"),
+                spill_loads=rep.get("spill_loads"), blocks=1)
+
+
+REG_PATTERNS = ("random", "empty", "full", "corners", "edges")
+
+
 def regularize_world(H: int, W: int, seed: int, nu_inf_share: float = 0.2,
-                     device="cuda") -> fu.DepthGrid:
+                     device="cuda", pattern: str = "random") -> fu.DepthGrid:
     """A fused depth grid at (H, W): a slanted inverse-depth plane with
-    noise, about a sixth of the cells occupied (denser at the bottom),
-    per-cell variances, Student-t scales and nu (a share of them inf)."""
+    noise, per-cell variances, Student-t scales and nu (a share of them
+    inf). Occupancy by `pattern`: "random", about a sixth of the cells
+    (denser at the bottom); "empty"; "full"; "corners", the four corner
+    cells; "edges", bands along a curve, 80% filled, as an edge map, with
+    a twentieth of the unoccupied cells NaN and a twentieth -inf, and one
+    occupied cell in 2,000 +inf."""
     rng = np.random.default_rng(seed)
     gy, gx = np.mgrid[0:H, 0:W]
     noise = (0.002 + 0.02 * gx / W) * rng.standard_normal((H, W))
     occ = rng.random((H, W)) < 0.02 + 0.3 * (gy / H) ** 2
+    extra = np.random.default_rng(seed + 1)
+    if pattern == "empty":
+        occ = np.zeros((H, W), bool)
+    elif pattern == "full":
+        occ = np.ones((H, W), bool)
+    elif pattern == "corners":
+        occ = np.zeros((H, W), bool)
+        occ[[0, 0, -1, -1], [0, -1, 0, -1]] = True
+    elif pattern == "edges":
+        occ = (np.abs(np.sin(gx / 7.0) + np.cos(gy / 9.0)) < 0.25) \
+            & (extra.random((H, W)) < 0.8)
+    elif pattern != "random":
+        raise ValueError(f"unknown occupancy pattern {pattern!r}")
     inv = np.where(occ, 0.3 + 0.2 * gx / W + 0.1 * gy / H + noise, -1.0)
+    if pattern == "edges":
+        pick = extra.random((H, W))
+        inv[~occ & (pick < 0.05)] = np.nan
+        inv[~occ & (pick > 0.95)] = -np.inf
+        inv[occ & (extra.random((H, W)) < 0.0005)] = np.inf
     var = (0.004 + 0.01 * rng.random((H, W))) ** 2
     nu = 2.0 + 4.0 * rng.random((H, W))
     nu[rng.random((H, W)) < nu_inf_share] = np.inf
@@ -837,24 +932,39 @@ def close_pairs(grid: fu.DepthGrid, r: int) -> int:
 def check_regularize(H: int, W: int, rcfg, iters: int = 50,
                      device="cuda") -> dict:
     """K5 against its twin regularize_plain on the card at (H, W) with
-    the preset's radius and gates: bit for bit in both norms (Tdist and
-    l2, a fifth of the points at nu = inf), timed in the preset's norm.
-    Bound: operations, from this grid: ~8 float32 operations a (valid
-    centre, window offset) pair, 12 more a close pair under Tdist (three
-    divisions) or 3 under l2; bytes: five (H, W) planes in, one out."""
-    grid = regularize_world(H, W, seed=9, device=device)
-    res = {}
-    for norm in ("Tdist", "l2"):
-        cfg = dataclasses.replace(rcfg, ls_norm=norm)
-        got = regularize(grid, cfg).inv_depth
-        again = regularize(grid, cfg).inv_depth
-        want = regularize_plain(grid, cfg).inv_depth
-        if not (torch.equal(got, want) and torch.equal(got, again)):
-            raise AssertionError(
-                f"K5 {norm} is not bit for bit its twin: "
-                f"{int((got != want).sum())} cells differ")
-        res[norm] = dict(kept=int((grid.occupied & (got != fu.EMPTY)).sum()),
-                         changed=int((got != grid.inv_depth).sum()))
+    the preset's radius and gates: bit for bit (NaN matching NaN) in both
+    norms (Tdist and l2, a fifth of the points at nu = inf), and two
+    launches alike, on every occupancy pattern of regularize_world (the
+    corners with gates of 0, since a corner's window holds one valid
+    cell); timed in the preset's norm on the "random" and "edges" grids.
+    Bound: operations, from the "random" grid: ~8 float32 operations a
+    (valid centre, window offset) pair, 12 more a close pair under Tdist
+    (three divisions) or 3 under l2; bytes: five (H, W) planes in, one
+    out."""
+    grids = {p: regularize_world(H, W, seed=9, device=device, pattern=p)
+             for p in REG_PATTERNS}
+    patterns = {}
+    for pattern, grid in grids.items():
+        patterns[pattern] = {}
+        for norm in ("Tdist", "l2"):
+            cfg = dataclasses.replace(rcfg, ls_norm=norm)
+            if pattern == "corners":
+                cfg = dataclasses.replace(cfg, min_neighbours=0,
+                                          min_close_neighbours=0)
+            got = regularize(grid, cfg).inv_depth
+            again = regularize(grid, cfg).inv_depth
+            want = regularize_plain(grid, cfg).inv_depth
+            if not (_same_bits(got, want) and _same_bits(got, again)):
+                raise AssertionError(
+                    f"K5 {norm} on the {pattern} grid is not bit for bit "
+                    f"its twin: {int((got != want).sum())} cells differ")
+            valid = grid.occupied
+            patterns[pattern][norm] = dict(
+                valid=int(valid.sum()),
+                kept=int((valid & (got != fu.EMPTY)).sum()),
+                nan=int(torch.isnan(got).sum()),
+                changed=int((got != grid.inv_depth).sum()))
+    grid = grids["random"]
     r = rcfg.radius
     n_valid = int(grid.occupied.sum())
     pairs = close_pairs(grid, r)
@@ -863,10 +973,30 @@ def check_regularize(H: int, W: int, rcfg, iters: int = 50,
     b, by = bound(H * W * (1 + 4 * 4 + 4), flops)
     out = _times(0.0, lambda: regularize(grid, rcfg),
                  lambda: regularize_plain(grid, rcfg), None, iters, b, by)
+    edges = timed(lambda: regularize(grids["edges"], rcfg), iters)
     out.update(radius=r, norm=rcfg.ls_norm, valid=n_valid, close_pairs=pairs,
-               flops=flops, by_norm=res,
+               flops=flops, by_norm=patterns["random"], patterns=patterns,
+               edges_kernel_ms=edges["ms"],
+               edges_valid=int(grids["edges"].occupied.sum()),
                shared_bytes=regularize_op.shared_bytes(r))
     return out
+
+
+def k5_plan(rcfg) -> dict:
+    """K5's instantiation for the preset's norm and radius: registers and
+    local bytes (CUDA runtime), spills (ptxas), blocks an SM holds,
+    shared bytes and threads a block, tile; the Python layout's shared
+    bytes must equal the kernel's."""
+    info = regularize_op.kernel_info(rcfg.ls_norm != "l2", rcfg.radius)
+    if info["smem_bytes"] != regularize_op.shared_bytes(rcfg.radius):
+        raise AssertionError(f"K5 takes {info['smem_bytes']} shared bytes "
+                             f"at r = {rcfg.radius}, ops/regularize.py says "
+                             f"{regularize_op.shared_bytes(rcfg.radius)}")
+    rep = ptxas_report(_build.BUILD_LOG.get("regularize.cu", "")).get(
+        info["name"], {})
+    return dict(info, radius=rcfg.radius, spill_stores=rep.get(
+        "spill_stores"), spill_loads=rep.get("spill_loads"),
+        warps_per_sm=info["blocks_per_sm"] * info["threads"] // 32)
 
 
 def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -3369,6 +3499,10 @@ def main() -> int:
     for shape in (*shapes, *BENCH_KERNEL_SHAPES):
         log(dict(k2_launch=shape, card=card,
                  **checks[("lm", shape)]["plan"]))
+    log(dict(k4_launch="rpg, dsec", card=card, **k4_plan()))
+    for shape in shapes:
+        log(dict(k5_launch=shape, card=card,
+                 **k5_plan(cfgs[shape].regularizer)))
     log(f"card: {card}")
     log(dict(kernels=table))
     log(dict(ok=True, device=dict(platform="gpu", kind=kind,

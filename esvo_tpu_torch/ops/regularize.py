@@ -13,6 +13,7 @@ import ctypes
 
 import torch
 
+from esvo_tpu_torch.ops import _build
 from esvo_tpu_torch.ops._build import CudaKernel, require
 
 KERNEL = CudaKernel("regularize.cu", "esvo_regularize",
@@ -21,14 +22,23 @@ KERNEL = CudaKernel("regularize.cu", "esvo_regularize",
 
 # the kernel's tile (csrc/regularize.cu REG_TX x REG_TY) and the shared
 # memory a block can take on Hopper
-TILE = (32, 8)
+TILE = (32, 16)
 MAX_SHARED_BYTES = 232448
+
+_INFO: dict = {}
 
 
 def shared_bytes(radius: int) -> int:
-    """Dynamic shared memory a block stages for `radius`: the tile and its
-    halo, four float planes and the valid bytes."""
-    return (TILE[0] + 2 * radius) * (TILE[1] + 2 * radius) * 17
+    """Dynamic shared memory a block stages for `radius`
+    (csrc/regularize.cu reg_layout): the tile and its halo as two float2
+    planes with an odd row pitch and a flag byte a pixel, the flags'
+    column sums a tile row, the list of valid centres and its row
+    counts."""
+    tx, ty = TILE
+    sw, sh = tx + 2 * radius, ty + 2 * radius
+    planes = 2 * sh * (sw | 1) * 8
+    cols = (planes + sh * sw + 3) & ~3
+    return cols + ty * sw * 4 + tx * ty * 2 + ty * 4
 
 
 def check_inputs(valid, invD, var, scale2, nu, radius: int) -> None:
@@ -71,3 +81,29 @@ def regularize(valid, invD, var, scale2, nu, *, radius: int, tdist: bool,
     KERNEL.launch(*args, out, H, W, radius, int(bool(tdist)),
                   min_neighbours, min_close_neighbours, 1e-20)
     return out
+
+
+def kernel_info(tdist: bool, radius: int, device=None) -> dict:
+    """The kernel's instantiation for (tdist, radius) as the CUDA runtime
+    reports it, after its shared-memory attribute is set (once): blocks an
+    SM holds, registers and local (spill) bytes a thread, dynamic shared
+    bytes and threads a block, the tile."""
+    device = torch.device("cuda" if device is None else device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    key = (bool(tdist), radius, index)
+    if key not in _INFO:
+        fn = _build._load(KERNEL.source).esvo_regularize_kernel_info
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 7)()
+        with torch.cuda.device(index):
+            err = fn(int(bool(tdist)), radius, ctypes.addressof(out))
+        if err != 0:
+            raise RuntimeError(f"esvo_regularize_kernel_info failed: CUDA "
+                               f"error {err}")
+        _INFO[key] = dict(
+            name=f"regularize_kernel<{'true' if tdist else 'false'}>",
+            blocks_per_sm=out[0], registers=out[1], local_bytes=out[2],
+            smem_bytes=out[3], threads=out[4], tile=(out[5], out[6]))
+    return _INFO[key]

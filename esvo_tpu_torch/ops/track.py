@@ -17,11 +17,13 @@ import ctypes
 
 import torch
 
+from esvo_tpu_torch.ops import _build
 from esvo_tpu_torch.ops._build import CudaKernel, require
 
 KERNEL = CudaKernel("track.cu", "esvo_track_solve",
                     [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
                     + [ctypes.c_float] * 2)
+_INFO: dict = {}
 
 
 def check_inputs(R, t, T_world_ref, points, point_valid, ts_negative,
@@ -83,3 +85,26 @@ def track_solve(R, t, T_world_ref, points, point_valid, ts_negative, grad_u,
                   batch_size, max_iteration, int(bool(huber)),
                   float(huber_threshold), float(lm_damping))
     return R_out, t_out, T_out, rms
+
+
+def kernel_info(device=None) -> dict:
+    """The kernel as the CUDA runtime reports it: registers and local
+    (spill) bytes a thread, static shared bytes, threads of its one
+    block, and the blocks an SM could hold (it launches one)."""
+    device = torch.device("cuda" if device is None else device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _INFO:
+        fn = _build._load(KERNEL.source).esvo_track_kernel_info
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 5)()
+        with torch.cuda.device(index):
+            err = fn(ctypes.addressof(out))
+        if err != 0:
+            raise RuntimeError(f"esvo_track_kernel_info failed: CUDA error "
+                               f"{err}")
+        _INFO[index] = dict(name="track_solve_kernel", registers=out[0],
+                            local_bytes=out[1], smem_bytes=out[2],
+                            threads=out[3], blocks_per_sm=out[4])
+    return _INFO[index]

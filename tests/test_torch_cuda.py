@@ -33,8 +33,12 @@ unsharded calls on the card.
 
 The port-only kernels: K4 (the tracker's LM scan) against solve_plain
 at the rpg and DSEC surfaces (pose within 1e-4 m and 1e-4 rad) and two
-launches bit for bit; K5 (regularization) bit for bit regularize_plain
-at r = 5 and r = 20 in both norms; neither solve nor regularize takes
+launches bit for bit, also on maps whose trailing batches hold no valid
+point (the rounds K4 skips write rms 0); K5 (regularization) bit for
+bit regularize_plain at r = 5 and r = 20 in both norms, on every
+occupancy pattern of chip_smoke.regularize_world (empty, full, the four
+corners, an edge-like grid with NaN and infinite inverse depths) and
+across repeat launches; neither solve nor regularize takes
 its twin on a CUDA tensor; one K4 launch a tick inside a resident
 replay. A float64 grid regularizes on the card through regularize_plain
 (K5 takes float32 only), equal to the CPU's. K6 (block matching's
@@ -746,6 +750,70 @@ def test_regularize_kernel_is_bitwise(smoke, shape):
     assert res["max_abs_err"] == 0.0 and res["radius"] in (5, 20)
     for norm in ("Tdist", "l2"):
         assert 0 < res["by_norm"][norm]["kept"] < res["valid"]
+
+
+@pytest.mark.parametrize("n_valid", [600, 1])
+@pytest.mark.parametrize("shape", ["rpg", "dsec"])
+def test_track_kernel_empty_batches(smoke, shape, n_valid):
+    """K4 on a map of n_valid points in 2000 slots (600: 6 of 10 rounds
+    find no valid point; 1: 8): two launches bit for bit, rms 0 on the
+    empty rounds (which K4 skips) and the pose within 1e-4 m and 1e-4
+    rad of solve_plain's, which runs every round."""
+    rig = smoke.make_rig(shape, "cuda")
+    prob, cam, cfg = smoke.track_world(rig, 2000, seed=3, n_valid=n_valid)
+    before = smoke.track.KERNEL.launches
+    a = smoke.reg.solve(prob, cam, cfg)
+    b = smoke.reg.solve(prob, cam, cfg)
+    assert smoke.track.KERNEL.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip((a[0].R, a[0].t, a[1], a[2]),
+                                                 (b[0].R, b[0].t, b[1], b[2])))
+    want = smoke.reg.solve_plain(prob, cam, cfg)
+    B, nb = cfg.batch_size, 2000 // cfg.batch_size
+    empty = [min((it % nb) * B, 2000 - B) >= n_valid
+             for it in range(cfg.max_iteration)]
+    assert sum(empty) == (6 if n_valid == 600 else 8)
+    rms = a[2].cpu().numpy()
+    assert (rms[np.array(empty)] == 0.0).all()
+    assert (want[2].cpu().numpy()[np.array(empty)] == 0.0).all()
+    t_diff, R_diff = smoke._pose_diff(a[1], want[1])
+    assert t_diff < 1e-4 and R_diff < 1e-4
+
+
+@pytest.mark.parametrize("norm", ["Tdist", "l2"])
+@pytest.mark.parametrize("pattern", ["random", "empty", "full", "corners",
+                                     "edges"])
+@pytest.mark.parametrize("shape", ["rpg", "dsec"])
+def test_regularize_kernel_occupancy_patterns(smoke, shape, pattern, norm):
+    """K5 equals regularize_plain bit for bit (NaN matching NaN) at the
+    preset's radius and gates on each occupancy pattern of
+    chip_smoke.regularize_world (the corners with gates of 0), in both
+    norms, as one launch a call; two launches agree."""
+    import dataclasses as dc
+    import esvo_tpu_torch.mapping.regularization as mreg
+    preset = smoke.RPG if shape == "rpg" else smoke.DSEC
+    rcfg = dc.replace(smoke.SystemConfig.from_dict(preset).regularizer,
+                      ls_norm=norm)
+    if pattern == "corners":
+        rcfg = dc.replace(rcfg, min_neighbours=0, min_close_neighbours=0)
+    H, W = (180, 240) if shape == "rpg" else (480, 640)
+    grid = smoke.regularize_world(H, W, seed=9, pattern=pattern)
+    before = smoke.regularize_op.KERNEL.launches
+    got = mreg.regularize(grid, rcfg).inv_depth
+    again = mreg.regularize(grid, rcfg).inv_depth
+    assert smoke.regularize_op.KERNEL.launches == before + 2
+    want = mreg.regularize_plain(grid, rcfg).inv_depth
+    assert smoke._same_bits(got, want) and smoke._same_bits(got, again)
+    if pattern == "edges":
+        assert torch.isnan(want).any()
+
+
+def test_regularize_layout_matches_the_kernel(smoke):
+    """ops/regularize.py's shared-memory layout is the kernel's, at the
+    preset radii and the largest the dispatch takes (45)."""
+    for r in (5, 20, 45):
+        info = smoke.regularize_op.kernel_info(True, r)
+        assert info["smem_bytes"] == smoke.regularize_op.shared_bytes(r)
+        assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
 
 
 def test_resident_replay_launches_k4_once_a_tick(smoke, resident):

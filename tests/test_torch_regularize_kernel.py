@@ -13,6 +13,15 @@
   same; the smoothed inverse depths agree within the fusion tests'
   rtol 1e-5, atol 1e-7 (tests/test_torch_fusion.py). The r = 2 case is
   tests/test_torch_fusion.py's.
+- The twin against JAX at the occupancy extremes K5's design branches
+  on (tiles with no valid centre, lanes packed with valid centres,
+  centres whose window leaves the image on two sides, windows that hold
+  a NaN or -inf inverse depth): an empty grid, a full grid, one valid
+  centre in each corner, and an edge-like clustered grid whose
+  unoccupied cells are partly NaN and -inf, in both norms. Cells are
+  NaN in the same places (l2 adds 0 * d for every neighbour that is not
+  close, so a non-finite d poisons the weighted mean), EMPTY in the
+  same places, and within the rtol above elsewhere.
 The kernel itself runs on the card only (tests/test_torch_cuda.py).
 """
 import numpy as np
@@ -118,7 +127,12 @@ def test_wrapper_checks_raise(name, bad, exc):
 
 
 def test_wrapper_checks_the_halo_and_refuses_cpu_tensors():
-    assert regularize_op.shared_bytes(20) == 72 * 48 * 17
+    # csrc/regularize.cu's layout at r = 20 (32x16 tile, 72x56 staged):
+    # two float2 planes of pitch 73, a flag byte a pixel, the column sums
+    # of 16 tile rows, the 512-entry list and 16 row counts
+    assert regularize_op.shared_bytes(20) == (2 * 56 * 73 * 8 + 56 * 72
+                                              + 16 * 72 * 4 + 512 * 2
+                                              + 16 * 4)
     with pytest.raises(ValueError, match="halo"):
         regularize_op.check_inputs(**_wrapper_args(), radius=60)
     before = regularize_op.KERNEL.launches
@@ -130,7 +144,7 @@ def test_wrapper_checks_the_halo_and_refuses_cpu_tensors():
 
 def test_kernel_takes_float32_and_a_halo_that_fits(monkeypatch):
     """K5's dispatch rule: a float32 inverse depth and a radius whose
-    halo fits a block (48 does, 49 does not) take K5; float64 takes the
+    halo fits a block (45 does, 46 does not) take K5; float64 takes the
     twin on every device (here through ``regularize``, which never
     reaches the wrapper); a float32 grid whose other planes are float64
     is taken by the rule and refused by the wrapper's checks."""
@@ -138,8 +152,8 @@ def test_kernel_takes_float32_and_a_halo_that_fits(monkeypatch):
     cfg = treg.RegularizationConfig(radius=20, min_neighbours=32,
                                     min_close_neighbours=32)
     assert treg.kernel_takes(gt, cfg)
-    assert treg.kernel_takes(gt, treg.RegularizationConfig(radius=48))
-    assert not treg.kernel_takes(gt, treg.RegularizationConfig(radius=49))
+    assert treg.kernel_takes(gt, treg.RegularizationConfig(radius=45))
+    assert not treg.kernel_takes(gt, treg.RegularizationConfig(radius=46))
     g64 = gt.replace(**{k: getattr(gt, k).double() for k in (
         "inv_depth", "variance", "scale2", "nu")})
     assert not treg.kernel_takes(g64, cfg)
@@ -159,3 +173,68 @@ def test_kernel_takes_float32_and_a_halo_that_fits(monkeypatch):
         regularize_op.check_inputs(mixed.occupied, mixed.inv_depth,
                                    mixed.variance, mixed.scale2, mixed.nu,
                                    cfg.radius)
+
+
+def _pattern_planes(pattern):
+    """_planes(4, 0.2) with its occupancy replaced by the pattern's."""
+    planes = _planes(4, 0.2)
+    rng = np.random.default_rng(5)
+    gy, gx = np.mgrid[0:H, 0:W]
+    plane = (0.3 + 0.2 * gx / W + 0.1 * gy / H
+             + 0.004 * rng.standard_normal((H, W))).astype(f32)
+    if pattern == "empty":
+        occ = np.zeros((H, W), bool)
+    elif pattern == "full":
+        occ = np.ones((H, W), bool)
+    elif pattern == "corners":
+        occ = np.zeros((H, W), bool)
+        occ[[0, 0, -1, -1], [0, -1, 0, -1]] = True
+    else:                                   # edges
+        occ = (np.abs(np.sin(gx / 7.0) + np.cos(gy / 9.0)) < 0.25) \
+            & (rng.random((H, W)) < 0.8)
+    invD = np.where(occ, plane, f32(-1.0)).astype(f32)
+    if pattern == "edges":
+        pick = rng.random((H, W))
+        invD[~occ & (pick < 0.05)] = np.nan
+        invD[~occ & (pick > 0.95)] = -np.inf
+    planes["inv_depth"] = invD
+    return planes
+
+
+@pytest.mark.parametrize("ls_norm", ["Tdist", "l2"])
+@pytest.mark.parametrize("pattern", ["empty", "full", "corners", "edges"])
+def test_twin_matches_jax_at_occupancy_extremes(pattern, ls_norm):
+    gj, gt = _grids(_pattern_planes(pattern))
+    # the corners' windows hold one valid cell: gates of 0 keep them
+    gates = dict(radius=7, min_neighbours=0, min_close_neighbours=0) \
+        if pattern == "corners" else dict(radius=7, min_neighbours=12,
+                                          min_close_neighbours=12)
+    rj = jreg.regularize(gj, jreg.RegularizationConfig(ls_norm=ls_norm,
+                                                       **gates))
+    rt = treg.regularize(gt, treg.RegularizationConfig(ls_norm=ls_norm,
+                                                       **gates))
+    dj = np.asarray(rj.inv_depth)
+    dt = rt.inv_depth.numpy()
+    d0 = gt.inv_depth.numpy()
+    valid = gt.occupied.numpy()
+    np.testing.assert_array_equal(np.isnan(dt), np.isnan(dj))
+    np.testing.assert_array_equal(dt == -1.0, dj == -1.0)
+    np.testing.assert_array_equal(dt[~valid], d0[~valid])  # -inf, NaN kept
+    kept = valid & (dt != -1.0) & ~np.isnan(dt)
+    np.testing.assert_allclose(dt[kept], dj[kept], rtol=1e-5, atol=1e-7)
+    if pattern == "empty":
+        assert not valid.any()
+    elif pattern == "corners":
+        assert valid.sum() == 4 and kept.sum() == 4
+        # alone in its window: Tdist's fold is the cell itself, l2's
+        # (w d) / w the cell to rounding
+        np.testing.assert_allclose(dt[valid], d0[valid],
+                                   rtol=0 if ls_norm == "Tdist" else 1e-6)
+    elif pattern == "full":
+        assert kept.mean() > 0.9
+    else:
+        assert np.isnan(d0).any() and np.isneginf(d0).any()
+        if ls_norm == "l2":   # the non-finite cells poison their windows
+            assert np.isnan(dt[valid]).any()
+        else:
+            assert kept.sum() > 0.5 * valid.sum()

@@ -13,6 +13,12 @@
   invalid: the pose within 1e-4 m and 1e-4 rad of JAX's and the
   per-round rms within 1e-3 relative (tests/test_torch_tracking.py's
   tolerances).
+- Empty rounds, the identity K4 skips them by: with only the first
+  n_valid of M = 2000 map points valid, a round whose batch holds no
+  valid point leaves (R, t) bit for bit (the pose after the rounds
+  before a run of empty rounds equals the pose after the run) and writes
+  rms 0, in JAX's ``solve`` and in ``solve_plain`` alike, and the final
+  poses agree within the tolerance above.
 The kernel itself runs on the card only (tests/test_torch_cuda.py).
 """
 import numpy as np
@@ -172,3 +178,57 @@ def test_twin_matches_jax_at_dsec_size(M, ls_norm):
     np.testing.assert_allclose(rms_t.numpy(), np.asarray(rms_j), rtol=1e-3)
     if M >= 299:
         assert rms_t[-1] < rms_t[0]
+
+
+def _empty_runs(empty):
+    """Maximal runs [a, b) of True in the per-round list."""
+    runs, a = [], None
+    for it, e in enumerate(list(empty) + [False]):
+        if e and a is None:
+            a = it
+        elif not e and a is not None:
+            runs.append((a, it))
+            a = None
+    return runs
+
+
+@pytest.mark.parametrize("n_valid, batch_size", [
+    (600, 300), (1, 300), (300, 150)],
+    ids=["600-of-2000", "1-of-2000", "300-of-2000-batch150"])
+def test_empty_rounds_keep_the_pose_and_write_rms_zero(n_valid, batch_size):
+    M = 2000
+    pts, _, ts = _world(M)
+    valid = np.arange(M) < n_valid
+    cfg_kw = dict(kernel_size=5, batch_size=batch_size)
+    (pj, cj, camj), (pt, ct, camt) = _problems(cfg_kw, pts, valid, ts)
+    K = cj.max_iteration
+    B, nb = min(batch_size, M), max(M // batch_size, 1)
+    starts = [min((it % nb) * batch_size, M - B) for it in range(K)]
+    empty = [not valid[s:s + B].any() for s in starts]
+    runs = _empty_runs(empty)
+    assert 0 < sum(empty) < K and runs
+
+    def pose_j(k):
+        c = jreg.RegProblemConfig(**cfg_kw, max_iteration=k)
+        prob, T, rms = jax.jit(lambda p: jreg.solve(p, camj, c))(pj)
+        return (np.asarray(prob.R), np.asarray(prob.t)), np.asarray(T), \
+            np.asarray(rms)
+
+    def pose_t(k):
+        c = treg.RegProblemConfig(**cfg_kw, max_iteration=k)
+        prob, T, rms = treg.solve_plain(pt, camt, c)
+        return (prob.R.numpy(), prob.t.numpy()), T.numpy(), rms.numpy()
+
+    for pose in (pose_j, pose_t):
+        _, _, rms = pose(K)
+        np.testing.assert_array_equal(rms[np.array(empty)], 0.0)
+        assert (rms[~np.array(empty)] > 0).all()
+        for a, b in runs:
+            (Ra, ta), _, _ = pose(a)
+            (Rb, tb), _, _ = pose(b)
+            np.testing.assert_array_equal(Ra, Rb)
+            np.testing.assert_array_equal(ta, tb)
+    _, Tj, _ = pose_j(K)
+    _, Tt, _ = pose_t(K)
+    t_diff, R_diff = _errors(Tt.astype(np.float64), Tj.astype(np.float64))
+    assert t_diff < 1e-4 and R_diff < 1e-4, (t_diff, R_diff)
