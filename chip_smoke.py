@@ -611,6 +611,10 @@ def ptxas_report(log: str) -> dict[str, dict]:
             if m:   # K5's, as regularize_op.kernel_info names them
                 cur = (f"regularize_kernel<"
                        f"{'true' if m[1] == '1' else 'false'}>")
+            m = re.search(r"block_match_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                          cur)
+            if m:   # K6's, as block_match_op.launch_plan names them
+                cur = f"block_match_kernel<{m[1]}, {m[2]}, {m[3]}>"
             if "track_solve_kernel" in cur:    # K4's one kernel
                 cur = "track_solve_kernel"
             fns[cur] = {}
@@ -1037,6 +1041,41 @@ def _bm_plain(fn):
         bm.best_disparity = real
 
 
+def k6_plan(wy: int, wx: int, n_disp: int) -> dict:
+    """K6's instantiation for a patch and range: T disparities a lane,
+    passes, events (warps) a block and shared bytes (the launch plan),
+    registers and local bytes (CUDA runtime), spills (ptxas), blocks an
+    SM holds."""
+    info = block_match_op.kernel_info(wy, wx, n_disp)
+    rep = ptxas_report(_build.BUILD_LOG.get("block_match.cu", "")).get(
+        info["instantiation"], {})
+    return dict(info, n_disp=n_disp, spill_stores=rep.get("spill_stores"),
+                spill_loads=rep.get("spill_loads"),
+                warps_per_sm=info["blocks_per_sm"]
+                * info["events_per_block"])
+
+
+def k6_shared_loads(wy: int, wx: int, n_disp: int) -> dict:
+    """Shared-memory loads a (event, disparity) pair in the plan's
+    instantiation, counted from the launch plan (T, passes) and the
+    kernel's loops, not measured: `lane`, what one lane issues for one
+    of its pairs (a templated lane walks T + wx - 1 strip columns of wy
+    words and 2 column sums for its T pairs; the generic one reads two
+    words a product and 2 column sums a column: 2 wy wx + 2 wx, as a
+    thread a disparity reads them); `warp`, the warp-wide load
+    instructions an event issues (the window's 3 wx column sums and,
+    templated, its float4s too) over its n_disp pairs."""
+    plan = block_match_op.launch_plan(wy, wx, n_disp)
+    t, passes = plan["T"], plan["passes"]
+    if plan["patch"] == "generic":
+        lane = wx * (2 * wy + 2)
+        warp = 3 * wx + passes * lane
+    else:
+        lane = (t + wx - 1) * (wy + 2) / t
+        warp = 3 * wx + -(-wy * wx // 4) + passes * (t + wx - 1) * (wy + 2)
+    return dict(lane=lane, warp=warp / n_disp)
+
+
 def check_block_match(rig: StereoRig, cfg: SystemConfig, n: int, disp: int,
                       iters: int = 50) -> dict:
     """K6 (block matching's disparity scan, one launch) against its twin
@@ -1045,15 +1084,16 @@ def check_block_match(rig: StereoRig, cfg: SystemConfig, n: int, disp: int,
     dark bit for bit on every event, twice (a repeat launch is bitwise);
     through match_events_stats the validity, disparity, cost and the
     failure counters equal; with a NaN in the right surface, torch's
-    argmin rule (the first NaN wins) followed. Timed beside the twin
-    ("slice") and the "matmul" volume (the nearest one-strategy
-    yardstick; no PyTorch call computes the function). Bound:
-    operations, counted from this run's events: per (event, disparity)
-    that stays inside the image, 2 wy wx + 3 wx products and sums and 14
-    more (the moments, the ZNCC, the cost, the comparison); per event
-    the right strip's column sums (3 wy (wx + D - 1)) and the left
-    window's (4 wy wx + 3 wx + 6); bytes: both surfaces once, ui, vi and
-    the three outputs."""
+    argmin rule (the first NaN wins) followed; the same bits in the
+    swapped patch (up_down's 15x7 instantiation) and a generic one (5x9).
+    Timed beside the twin ("slice") and the "matmul" volume (the nearest
+    one-strategy yardstick; no PyTorch call computes the function).
+    Bound: operations, counted from this run's events: per (event,
+    disparity) that stays inside the image, 2 wy wx + 3 wx products and
+    sums and 14 more (the moments, the ZNCC, the cost, the comparison);
+    per event the right strip's column sums (3 wy (wx + D - 1)) and the
+    left window's (4 wy wx + 3 wx + 6); bytes: both surfaces once, ui, vi
+    and the three outputs."""
     bcfg = cfg.bm
     cam = rig.left
     H, W = cam.height, cam.width
@@ -1079,31 +1119,45 @@ def check_block_match(rig: StereoRig, cfg: SystemConfig, n: int, disp: int,
     vi = torch.clamp(torch.floor(x[:, 1]).to(torch.int64), 0, H - 1)
     kw = dict(dmin=dmin, dmax=dmax, hy=hy, hx=hx)
 
-    def kernel(a=sl, b=sr):
-        return block_match_op.best_disparity(a, b, ui, vi, **kw)
+    def kernel(a=sl, b=sr, **over):
+        return block_match_op.best_disparity(a, b, ui, vi, **{**kw, **over})
 
-    def plain(a=sl, b=sr, strategy="slice"):
-        return bm.best_disparity_plain(a, b, ui, vi, dmin, dmax, hy, hx,
-                                       strategy)
+    def plain(a=sl, b=sr, strategy="slice", **over):
+        k = {**kw, **over}
+        return bm.best_disparity_plain(a, b, ui, vi, k["dmin"], k["dmax"],
+                                       k["hy"], k["hx"], strategy)
 
     def same(a, b):
         return all(_same_bits(p, q) for p, q in zip(a, b))
 
+    n0 = block_match_op.KERNEL.launches
     k1, k2, p1 = kernel(), kernel(), plain()
     sr_nan = sr.clone()
     sr_nan[::23, ::37] = float("nan")
     kn, pn = kernel(sl, sr_nan), plain(sl, sr_nan)
+    patches = {}
+    for name, over in (("swapped", dict(hy=hx, hx=hy)),
+                       ("generic", dict(hy=2, hx=4))):
+        p = block_match_op.launch_plan(2 * over["hy"] + 1,
+                                       2 * over["hx"] + 1, D)
+        patches[name] = dict(instantiation=p["instantiation"],
+                             bitwise=same(kernel(**over), plain(**over)))
     res = dict(events=n, disparities=D, patch=[wy, wx],
                smoothed=bcfg.smooth_time_surface,
+               instantiation=block_match_op.launch_plan(
+                   wy, wx, D)["instantiation"],
+               launched=block_match_op.KERNEL.launches - n0,
                bitwise=same(k1, p1), repeat_bitwise=same(k1, k2),
                match_equal=match_equal, nan_bitwise=same(kn, pn),
                nan_events=int(torch.isnan(kn[1]).sum()),
+               other_patches=patches,
                matched=int(got.valid.sum()),
                best_differs=int((k1[0] != p1[0]).sum()),
                counters={k: int(v) for k, v in gs.items()})
     if not (res["bitwise"] and res["repeat_bitwise"] and match_equal
             and res["nan_bitwise"] and 0 < res["nan_events"] < n
-            and res["matched"] > 0):
+            and res["matched"] > 0 and res["launched"] == 5
+            and all(p["bitwise"] for p in patches.values())):
         raise AssertionError(f"K6 differs from its twin: {res}")
     ds = torch.arange(dmin, dmax + 1, device=ui.device)
     inside = int(((ui[:, None] - ds - hx >= 1)
@@ -1119,16 +1173,49 @@ def check_block_match(rig: StereoRig, cfg: SystemConfig, n: int, disp: int,
     return out
 
 
+def k7_bytes(order, pix_sorted, start, hw: int, K: int, kt: int) -> int:
+    """The bytes K7's function must move, from this run's sorted order:
+    per pixel its 11 grid words read and 11 written; the sorted pixel ids
+    inside the grid (8 bytes each) once; each taken slot's order entry (8
+    bytes); each distinct candidate that some slot takes, its 8 words
+    once (a candidate's kt tiles carry the same words); the camera's 12
+    words and the two counts (8 bytes each)."""
+    inside = pix_sorted < hw
+    pos = torch.arange(pix_sorted.numel(), device=pix_sorted.device)
+    first = start[torch.clamp(pix_sorted, max=hw - 1)]
+    taken = inside & (pos - first < K)
+    distinct = int(torch.unique(order[taken] // kt).numel())
+    return (hw * 22 * 4 + int(inside.sum()) * 8 + int(taken.sum()) * 8
+            + distinct * 8 * 4 + 12 * 4 + 2 * 8)
+
+
+def rank_placement(order, pix_sorted, hw: int, K: int) -> torch.Tensor:
+    """The slot placement K7 replaced, as the port ran it before K7 read
+    runs: the segment rank (a cummax), each kept candidate's slot, and
+    the (K, H * W) int32 plane of tiled ids that the fold read."""
+    rank = fu._segment_rank(pix_sorted)
+    keep = (pix_sorted < hw) & (rank < K)
+    slot = torch.where(keep, rank * hw + pix_sorted,
+                       torch.full_like(pix_sorted, hw * K))
+    ids = torch.full((K * hw + 1,), -1, dtype=torch.int32,
+                     device=order.device)
+    ids[slot] = order.to(torch.int32)
+    return ids[:-1].view(K, hw)
+
+
 def check_fuse(rig: StereoRig, cfg: SystemConfig, m: int,
                iters: int = 50) -> dict:
-    """K7 (the fusion fold, one launch) against its twin fold_slots_plain
-    on the card, on fuse_world's grid at the rig's size and m candidates:
-    at fusion radius 0 and 1, in Tdist and l2, all 11 planes bit for bit
-    (and a repeat launch), num_fused and num_dropped equal, and every
-    rule hit (fuses counted; replaces as cells whose x moved). Timed at
-    the preset's radius in Tdist. Bound: bytes, counted from this run's
-    slots: per pixel the 11 grid words and K slot ids read and 11 words
-    written, per filled slot its candidate's 8 words, the camera's 12."""
+    """K7 (the fusion fold with its slot placement, one launch) against
+    its twin _assign_slots + fold_slots_plain on the card, on fuse_world's
+    grid at the rig's size and m candidates: at fusion radius 0 and 1, in
+    Tdist and l2, all 11 planes bit for bit (and a repeat launch),
+    num_fused and num_dropped equal, candidates dropped (pixels with more
+    than K) in every case, and every rule hit (fuses counted; replaces as
+    cells whose x moved); one launch of K7 a call. Timed at the preset's
+    radius in Tdist: the kernel; the two sorts before it; the placement
+    it replaced (rank_placement) and torch.searchsorted's run bounds
+    (fu.run_bounds; the placement's one-call yardstick). Bound: bytes,
+    counted from this run's runs by k7_bytes."""
     cam = rig.left
     H, W = cam.height, cam.width
     K = cfg.fusion.max_candidates_per_pixel
@@ -1165,34 +1252,67 @@ def check_fuse(rig: StereoRig, cfg: SystemConfig, m: int,
                        differ=differ)
             by_case[f"r{radius}_{norm}"] = rec
             if (differ or launched != 2 or int(got[1]) != int(n_fused)
-                    or int(got[2]) != int(n_drop) or rec["fused"] == 0
-                    or rec["inserted"] == 0 or rec["x_moved"] == 0):
+                    or int(got[2]) != int(n_drop)
+                    or int(again[1]) != int(n_fused)
+                    or int(again[2]) != int(n_drop) or rec["fused"] == 0
+                    or rec["dropped"] == 0 or rec["inserted"] == 0
+                    or rec["x_moved"] == 0):
                 raise AssertionError(f"K7 r{radius} {norm}: {rec}")
+    # a block whose stretch of the sorted order outgrows K7's shared
+    # buffer (FUSE_RANGE) searches it in L2: 3,000 candidates x 9 tiles
+    # on a 16x16 grid (two blocks)
+    grid, cand = fuse_world(16, 16, 3000, seed=33, device=cam.mask.device)
+    fcfg = fu.FusionConfig(fusion_radius=1, max_candidates_per_pixel=K)
+    got = fu.fuse_frame(grid, cand, cam, fcfg)
+    tiled, pix = fu._splat(cand, 16, 16, 1)
+    slot_idx, n_drop = fu._assign_slots(pix, tiled.valid, tiled.variance,
+                                        256, K)
+    want, n_fused = fu.fold_slots_plain(grid, tiled, slot_idx, cam, fcfg)
+    rec = by_case["long_stretch"] = dict(
+        fused=int(got[1]), dropped=int(got[2]),
+        differ=[f.name for f in dataclasses.fields(want)
+                if not _same_bits(getattr(got[0], f.name),
+                                  getattr(want, f.name))])
+    if (rec["differ"] or rec["fused"] != int(n_fused)
+            or rec["dropped"] != int(n_drop) or rec["dropped"] == 0):
+        raise AssertionError(f"K7 long stretch: {rec}")
     radius = cfg.fusion.fusion_radius
-    fcfg = fu.FusionConfig(ls_norm="Tdist", fusion_radius=radius,
-                           max_candidates_per_pixel=K)
     grid, cand = worlds[radius]
-    tiled, pix = fu._splat(cand, H, W, radius)
-    slot_idx, _ = fu._assign_slots(pix, tiled.valid, tiled.variance, H * W,
-                                   K)
-    ids = fu.slot_ids(slot_idx, pix.shape[0], H, W, K)
-    cam_words = fu.camera_words(cam.params.P)
+    hw = H * W
+    pix, inb = fu._splat_pixels(cand, H, W, radius)
+    valid = cand.valid[:, None] & inb
+
+    def sorts():
+        return fu._sort_slots(pix, valid, cand.variance[:, None], hw)
+
+    order, pix_sorted = sorts()
+    start, end, n_drop = fu.run_bounds(pix_sorted, hw, K)
+    taken = int(torch.clamp(end - start, max=K).sum())
+    nbytes = k7_bytes(order, pix_sorted, start, hw, K, pix.shape[1])
     planes = dict(invD=grid.inv_depth, var=grid.variance, s2=grid.scale2,
                   nu=grid.nu, res=grid.residual, age=grid.age, x=grid.x,
                   p=grid.p_cam)
-    cands = dict(invD=tiled.inv_depth, var=tiled.variance, s2=tiled.scale2,
-                 nu=tiled.nu, res=tiled.residual, age=tiled.age, x=tiled.x)
-    filled = int((ids >= 0).sum())
-    nbytes = H * W * (11 + K + 11) * 4 + filled * 8 * 4 + 12 * 4
+    cands = dict(invD=cand.inv_depth, var=cand.variance, s2=cand.scale2,
+                 nu=cand.nu, res=cand.residual, age=cand.age, x=cand.x)
+    cam_words = fu.camera_words(cam.params.P)
+    fcfg = fu.FusionConfig(ls_norm="Tdist", fusion_radius=radius,
+                           max_candidates_per_pixel=K)
+    tiled, tpix = fu._splat(cand, H, W, radius)
+    slot_idx, _ = fu._assign_slots(tpix, tiled.valid, tiled.variance, hw, K)
     b, by = bound(nbytes, 0.0)
     out = _times(0.0,
-                 lambda: fuse_op.fold_slots(planes, cands, ids, cam_words,
-                                            tdist=True),
+                 lambda: fuse_op.fuse_runs(planes, cands, order, pix_sorted,
+                                           cam_words, K=K, tdist=True),
                  lambda: fu.fold_slots_plain(grid, tiled, slot_idx, cam,
                                              fcfg), None, iters, b, by)
+    sort_t = timed(sorts, iters)
+    rank_t = timed(lambda: rank_placement(order, pix_sorted, hw, K), iters)
+    lib_t = timed(lambda: fu.run_bounds(pix_sorted, hw, K), iters)
     out.update(radius=radius, norm="Tdist", candidates=m,
-               tiled=int(pix.shape[0]), filled_slots=filled, bytes=nbytes,
-               by_case=by_case)
+               tiled=int(pix.numel()), taken=taken, dropped=int(n_drop),
+               bytes=nbytes, sort_ms=sort_t["ms"],
+               rank_placement_ms=rank_t["ms"],
+               placement_library_ms=lib_t["ms"], by_case=by_case)
     return out
 
 
@@ -1258,6 +1378,8 @@ def _profiled(fn, again=None) -> dict:
                 idle_share_unprofiled=1.0 - busy / wall,
                 device_launches=sum(e.count for e in dev),
                 kernel_launches=kernel_counts(dev),
+                rank_scans=sum(e.count for e in dev
+                               if RANK_SCAN in e.key),
                 top=[dict(kernel=e.key[:70],
                           ms=e.self_device_time_total / 1e3, n=e.count)
                      for e in top])
@@ -1266,12 +1388,17 @@ def _profiled(fn, again=None) -> dict:
 # how the profiler names each hand-written kernel (the demangled symbols
 # of csrc/*.cu: remap_one_kernel / remap_kernel<PPT, NCAM>,
 # slice_patches_kernel<RPL, VEC>, lm_kernel<KPL, TDIST>,
-# track_solve_kernel, regularize_kernel<TDIST>, block_match_kernel,
-# fuse_fold_kernel)
+# track_solve_kernel, regularize_kernel<TDIST>,
+# block_match_kernel<WY, WX, T>, fuse_runs_kernel)
 KERNEL_NAMES = {"remap": "remap_", "patches": "slice_patches_kernel<",
                 "lm": "lm_kernel<", "track": "track_solve_kernel",
                 "regularize": "regularize_kernel<",
-                "bm": "block_match_kernel", "fuse": "fuse_fold_kernel"}
+                "bm": "block_match_kernel<", "fuse": "fuse_runs_kernel"}
+
+
+# the kernel of torch.cummax, which the slot placement ran before K7 read
+# runs of the sorted order (none is left on the fusion path)
+RANK_SCAN = "scan_innermost_dim_with_indices"
 
 
 def kernel_counts(device_events) -> dict:
@@ -3306,11 +3433,12 @@ def main() -> int:
         checks[("regularize", shape)] = check_regularize(
             rig.left.height, rig.left.width, cfgs[shape].regularizer,
             iters=50 if shape == "rpg" else 20)
-        checks[("bm", shape)] = check_block_match(
-            rig, cfgs[shape], s["n"], s["disp"],
-            iters=50 if shape == "rpg" else 20)
-        checks[("fuse", shape)] = check_fuse(
-            rig, cfgs[shape], 4 * s["n"], iters=50 if shape == "rpg" else 20)
+        # 100 launches: over 20 at DSEC the profiler recorded K6 / K7
+        # 0.6-0.75x the device time that 50-100 give
+        checks[("bm", shape)] = check_block_match(rig, cfgs[shape], s["n"],
+                                                  s["disp"], iters=100)
+        checks[("fuse", shape)] = check_fuse(rig, cfgs[shape], 4 * s["n"],
+                                             iters=100)
         for k in KERNELS:
             log(dict(check=KERNELS[k]["name"], shape=shape, card=card,
                      **checks[(k, shape)]))
@@ -3332,11 +3460,15 @@ def main() -> int:
                           for k, info in KERNELS.items()}
         for rec in records[name]:
             log(dict(_public(rec), card=card))
+        profile = [r for r in records[name] if "profile" in r][0]["profile"]
         records[name] = [r for r in records[name] if "profile" not in r]
         log(dict(slice=name, launches=launches[name]))
         if min(launches[name][k] for k in CYCLE_KERNELS) == 0:
             raise AssertionError(f"{name}: a kernel never launched: "
                                  f"{launches[name]}")
+        if profile["cycle"]["rank_scans"]:
+            raise AssertionError(f"{name}: the profiled cycle ran "
+                                 f"{RANK_SCAN}: {profile['cycle']}")
     for name, recs in records.items():
         errs = [r["gt_median_rel_err"] for r in recs]
         if not (all(r["valid"] > 0 for r in recs)
@@ -3486,6 +3618,10 @@ def main() -> int:
                               for key in ("max_abs_err", "kernel_ms",
                                           "plain_ms", "bound_ms", "bound_by",
                                           "library_ms")})
+        for key in ("instantiation", "sort_ms", "rank_placement_ms",
+                    "placement_library_ms"):
+            if key in rpg:    # K6's instantiation, K7's placement
+                entry.update({key: rpg[key], f"dsec_{key}": dsec[key]})
         for prefix, rec in (("", rpg), ("dsec_", dsec)):
             if "pair" in rec:
                 entry.update({f"{prefix}pair_{key}": rec["pair"][key]
@@ -3503,6 +3639,14 @@ def main() -> int:
     for shape in shapes:
         log(dict(k5_launch=shape, card=card,
                  **k5_plan(cfgs[shape].regularizer)))
+    for shape in shapes:
+        bcfg = cfgs[shape].bm
+        D = bcfg.max_disparity - bcfg.min_disparity + 1
+        for wy, wx in ((bcfg.patch_size_y, bcfg.patch_size_x),
+                       (bcfg.patch_size_x, bcfg.patch_size_y), (5, 9)):
+            log(dict(k6_launch=shape, card=card, **k6_plan(wy, wx, D),
+                     shared_loads_per_pair_from_plan=k6_shared_loads(
+                         wy, wx, D)))
     log(f"card: {card}")
     log(dict(kernels=table))
     log(dict(ok=True, device=dict(platform="gpu", kind=kind,

@@ -17,24 +17,46 @@
 //   and dark.
 //
 // What bounds it on the card: operations. An unmasked (event, disparity)
-// pair costs ~2 * wy * wx + 2 * wx + 16 float32 operations (240 at the
-// 7x15 patch); the bytes are the event's window and strip, which the
-// surfaces' reuse across events keeps in L2.
+// pair costs ~2 * wy * wx + 3 * wx + 14 float32 operations (269 at the
+// 7x15 patch), none of which may be fused into an FMA (below); the bytes
+// are the event's window and strip, which the surfaces' reuse across
+// events keeps in L2. With one shared load a product, as a thread a
+// disparity reads it, the shared-memory pipe (one warp-wide load an SM a
+// clock) would take longer than the arithmetic.
 //
 // Design (what each element does about the limits):
-// - One block an event. It stages the event's (wy, wx) left window and
-//   its (wy, wx + D - 1) right strip (columns ui - dmax - hx to
-//   ui - dmin + hx) in shared memory once, zeros outside the image
-//   (4.6 KB of strip at the DSEC preset's D = 151).
-// - The column sums of R and R * R are the same for every disparity: one
-//   thread a strip column computes them once. The left window's column
-//   sums likewise, then one thread adds S_l, S_l2 and dark.
-// - One thread a disparity (a loop when D exceeds the block): the
-//   products' column sums, then the row of them; consecutive threads
-//   read consecutive strip words, so no bank conflicts. A masked
-//   disparity costs nothing: its cost is 1.0 whatever the sums are.
-// - A warp-shuffle argmin, then one across the block's warps, both with
-//   torch's comparison.
+// - One warp an event, up to 4 events a block (the launch plan,
+//   ops/block_match.py::launch_plan). The warp stages the event's (wy, wx)
+//   left window and its (wy, wx + D - 1) right strip (columns
+//   ui - dmax - hx to ui - dmin + hx), zeros outside the image, in its own
+//   slice of shared memory: a lane a column, the rows in a loop
+//   (unrolled where the patch is a template argument), so no index is
+//   divided. While it stages a column it adds the column's sums of R and
+//   R * R (the same for every disparity), and of L, L * L and (L < 1)
+//   for the window. Only __syncwarp: no block barrier.
+// - Templated on the patch (block_match_kernel<WY, WX, T>: 7x15, both
+//   presets, and 15x7, up_down's swapped patch), so every loop over the
+//   window unrolls: the left window is read once into WY * WX registers
+//   (as float4), and every index into it is a constant.
+// - A lane owns T consecutive disparities (T = ceil(D / 32) within 2..5:
+//   2 at D = 40, 5 at D = 151; more disparities take more passes). The T
+//   windows of a lane overlap in all but T - 1 strip columns, so the lane
+//   walks the T + WX - 1 columns once: each column's WY words and two
+//   column sums are read from shared memory once and serve up to T
+//   products, 34 shared loads a pair at 7x15 and T = 5 instead of 240.
+//   S_lr, S_r and S_r2 of the T disparities stay in registers, added in
+//   the twin's column order; the T chains are independent. A window
+//   column outside the image is a select, not a branch, so the unrolled
+//   walk stays one basic block the compiler can interleave.
+// - 168 registers a thread (BM_MIN_BLOCKS), so three blocks, 12 warps,
+//   share an SM; the window's 105 registers are what sets that. (Copying
+//   the next event's words in with cp.async while a warp scans, and a
+//   walk over window columns outermost, both ran slower on the H100.)
+// - Any other patch runs block_match_kernel<0, 0, 1>: the same staging,
+//   one disparity a lane a pass, the window read from shared memory.
+// - The argmin: over the lane's disparities in index order, then across
+//   the warp by shuffles, all with torch's comparison (a total order of
+//   (cost, index), so any reduction order gives the same winner).
 // - Bit for bit the plain twin on the card: each operation is the one the
 //   twin's eager kernels run, in the twin's order (_box adds each column
 //   from the top row down starting from 0, then the columns left to
@@ -47,7 +69,12 @@
 #include <stdint.h>
 #include <limits.h>
 
-#define BM_MAX_THREADS 256
+#define BM_MAX_WARPS 4
+#define BM_T_MIN 2
+#define BM_T_MAX 5
+// blocks an SM must hold: caps a thread at 168 registers, so three
+// blocks of four warps fit (the 7x15 kernels take 168-192 without it)
+#define BM_MIN_BLOCKS 3
 
 struct BmParams {
   const float* L;        // (H, W) left surface
@@ -57,9 +84,22 @@ struct BmParams {
   int64_t* best;         // (N,) argmin index into [dmin, dmax]
   float* best_cost;      // (N,)
   float* dark;           // (N,) box of (L < 1) at the event
-  int H, W, dmin, dmax, hy, hx;
+  int H, W, N, dmin, dmax, hy, hx;
+  int warp_floats;       // shared floats an event (a warp) stages
   float inv_area;        // float32(1 / ((2hy+1) * (2hx+1)))
 };
+
+// A warp's shared slice, in floats (ops/block_match.py::shared_bytes
+// mirrors it): the left window row-major, padded to whole float4s; the
+// window's column sums of L, L * L and (L < 1); the strip's column sums
+// of R and R * R; the strip row-major. Rounded up to whole float4s, so
+// every warp's window starts 16-byte aligned.
+static __host__ __device__ __forceinline__ int bm_warp_floats(int wy, int wx,
+                                                              int D) {
+  const int SW = wx + D - 1;
+  const int n = ((wy * wx + 3) & ~3) + 3 * wx + 2 * SW + wy * SW;
+  return (n + 3) & ~3;
+}
 
 // torch.clamp(x, min=0): a NaN stays NaN
 __device__ __forceinline__ float clamp0(float x) { return x < 0.0f ? 0.0f : x; }
@@ -82,93 +122,161 @@ __device__ __forceinline__ void moments(float S, float S2, float inv,
       1e-6f);
 }
 
-__global__ void __launch_bounds__(BM_MAX_THREADS)
+// the cost of disparity d from its three box sums (1.0 where it leaves
+// the image)
+__device__ __forceinline__ float zncc_cost(const BmParams& p, int u, int hx,
+                                           int d, float Slr, float Sr,
+                                           float Sr2, float m_l,
+                                           float sigma_l) {
+  if (!(u - d - hx >= 1 && u - d + hx < p.W - 1)) return 1.0f;
+  float m_r, sigma_r;
+  moments(Sr, Sr2, p.inv_area, &m_r, &sigma_r);
+  const float ncc = __fdiv_rn(
+      __fsub_rn(__fmul_rn(Slr, p.inv_area), __fmul_rn(m_l, m_r)),
+      __fmul_rn(sigma_l, sigma_r));
+  return __fmul_rn(0.5f, __fsub_rn(1.0f, ncc));
+}
+
+template <int WY, int WX, int T>
+__global__ void __launch_bounds__(32 * BM_MAX_WARPS, BM_MIN_BLOCKS)
     block_match_kernel(const BmParams p) {
-  extern __shared__ float smem[];
-  const int wx = 2 * p.hx + 1, wy = 2 * p.hy + 1;
+  extern __shared__ float4 bm_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (n >= p.N) return;   // a whole warp: no block barrier follows
+  const int wy = WY > 0 ? WY : 2 * p.hy + 1;
+  const int wx = WX > 0 ? WX : 2 * p.hx + 1;
+  const int hy = (wy - 1) / 2, hx = (wx - 1) / 2;
   const int D = p.dmax - p.dmin + 1;
   const int SW = wx + D - 1;
-  float* s_l = smem;               // (wy, wx) left window
-  float* s_r = s_l + wy * wx;      // (wy, SW) right strip
-  float* s_vr = s_r + wy * SW;     // (SW,) column sums of R
-  float* s_vr2 = s_vr + SW;        // (SW,) column sums of R * R
-  float* s_vl = s_vr2 + SW;        // (wx,) column sums of L
-  float* s_vl2 = s_vl + wx;        // (wx,) of L * L
-  float* s_vdk = s_vl2 + wx;       // (wx,) of (L < 1)
-  float* s_stat = s_vdk + wx;      // m_l, sigma_l
-  float* s_wc = s_stat + 2;        // a warp's best cost (32)
-  int* s_wi = reinterpret_cast<int*>(s_wc + 32);   // and its index (32)
+  float* s_l = reinterpret_cast<float*>(bm_smem) + (size_t)warp * p.warp_floats;
+  float* s_vl = s_l + ((wy * wx + 3) & ~3);
+  float* s_vl2 = s_vl + wx;
+  float* s_vdk = s_vl2 + wx;
+  float* s_vr = s_vdk + wx;
+  float* s_vr2 = s_vr + SW;
+  float* s_r = s_vr2 + SW;
 
-  const int n = blockIdx.x;
   const int u = (int)p.ui[n], v = (int)p.vi[n];
-  const int x0 = u - p.hx, y0 = v - p.hy;
-  const int j0 = u - p.dmax - p.hx;   // image column of strip column 0
-  for (int i = threadIdx.x; i < wy * wx; i += blockDim.x) {
-    const int y = y0 + i / wx, x = x0 + i % wx;
-    s_l[i] = (y >= 0 && y < p.H && x >= 0 && x < p.W)
-                 ? __ldg(p.L + (size_t)y * p.W + x) : 0.0f;
-  }
-  for (int i = threadIdx.x; i < wy * SW; i += blockDim.x) {
-    const int y = y0 + i / SW, x = j0 + i % SW;
-    s_r[i] = (y >= 0 && y < p.H && x >= 0 && x < p.W)
-                 ? __ldg(p.R + (size_t)y * p.W + x) : 0.0f;
-  }
-  __syncthreads();
-  // _box's vertical pass: each column from the top row down, from 0
-  for (int c = threadIdx.x; c < SW; c += blockDim.x) {
-    float s = 0.0f, s2 = 0.0f;
-    for (int r = 0; r < wy; ++r) {
-      const float a = s_r[r * SW + c];
-      s = __fadd_rn(s, a);
-      s2 = __fadd_rn(s2, __fmul_rn(a, a));
-    }
-    s_vr[c] = s;
-    s_vr2[c] = s2;
-  }
-  for (int c = threadIdx.x; c < wx; c += blockDim.x) {
-    float s = 0.0f, s2 = 0.0f, dk = 0.0f;
+  const int x0 = u - hx, y0 = v - hy;
+  const int j0 = u - p.dmax - hx;   // image column of strip column 0
+  // the left window, a lane a column: its sums from the top row down
+  for (int c = lane; c < wx; c += 32) {
     const int x = x0 + c;
+    const bool in_x = x >= 0 && x < p.W;
+    float s = 0.0f, s2 = 0.0f, dk = 0.0f;
+#pragma unroll
     for (int r = 0; r < wy; ++r) {
       const int y = y0 + r;
-      const float a = s_l[r * wx + c];
+      const bool in = in_x && y >= 0 && y < p.H;
+      const float a = in ? __ldg(p.L + (size_t)y * p.W + x) : 0.0f;
+      s_l[r * wx + c] = a;
       s = __fadd_rn(s, a);
       s2 = __fadd_rn(s2, __fmul_rn(a, a));
       // (L < 1) is padded with 0 outside the image, not computed on 0
-      const bool in = y >= 0 && y < p.H && x >= 0 && x < p.W;
       dk = __fadd_rn(dk, (in && a < 1.0f) ? 1.0f : 0.0f);
     }
     s_vl[c] = s;
     s_vl2[c] = s2;
     s_vdk[c] = dk;
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    // _box's horizontal pass: the column sums left to right, from 0
-    float S = 0.0f, S2 = 0.0f, dk = 0.0f;
-    for (int c = 0; c < wx; ++c) {
-      S = __fadd_rn(S, s_vl[c]);
-      S2 = __fadd_rn(S2, s_vl2[c]);
-      dk = __fadd_rn(dk, s_vdk[c]);
+  // the right strip, a lane a column (consecutive lanes, consecutive
+  // words of a row): the column sums of R and R * R on the way
+  for (int c = lane; c < SW; c += 32) {
+    const int x = j0 + c;
+    const bool in_x = x >= 0 && x < p.W;
+    float s = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int r = 0; r < wy; ++r) {
+      const int y = y0 + r;
+      const float a = (in_x && y >= 0 && y < p.H)
+                          ? __ldg(p.R + (size_t)y * p.W + x) : 0.0f;
+      s_r[r * SW + c] = a;
+      s = __fadd_rn(s, a);
+      s2 = __fadd_rn(s2, __fmul_rn(a, a));
     }
-    moments(S, S2, p.inv_area, &s_stat[0], &s_stat[1]);
-    p.dark[n] = dk;
+    s_vr[c] = s;
+    s_vr2[c] = s2;
   }
-  __syncthreads();
-  const float m_l = s_stat[0], sigma_l = s_stat[1];
+  __syncwarp();
+  // _box's horizontal pass at the event: the column sums left to right
+  float S = 0.0f, S2 = 0.0f, dk = 0.0f;
+  for (int c = 0; c < wx; ++c) {
+    S = __fadd_rn(S, s_vl[c]);
+    S2 = __fadd_rn(S2, s_vl2[c]);
+    dk = __fadd_rn(dk, s_vdk[c]);
+  }
+  float m_l, sigma_l;
+  moments(S, S2, p.inv_area, &m_l, &sigma_l);
+  if (lane == 0) p.dark[n] = dk;
 
   float bc = __int_as_float(0x7f800000);   // +inf with the largest index:
   int bi = INT_MAX;                        // every real entry comes first
-  for (int k = threadIdx.x; k < D; k += blockDim.x) {
-    const int d = p.dmin + k;
-    float cost = 1.0f;
-    if (u - d - p.hx >= 1 && u - d + p.hx < p.W - 1) {
-      const int j = p.dmax - d;   // strip column of image column u - d - hx
+  if constexpr (WX > 0) {
+    // the window in registers; bit dx of xin: column x0 + dx is inside
+    float lw[((WY * WX + 3) / 4) * 4];
+#pragma unroll
+    for (int i = 0; i < (WY * WX + 3) / 4; ++i) {
+      const float4 q = reinterpret_cast<const float4*>(s_l)[i];
+      lw[4 * i] = q.x;
+      lw[4 * i + 1] = q.y;
+      lw[4 * i + 2] = q.z;
+      lw[4 * i + 3] = q.w;
+    }
+    unsigned xin = 0u;
+#pragma unroll
+    for (int dx = 0; dx < WX; ++dx)
+      xin |= (x0 + dx >= 0 && x0 + dx < p.W) ? (1u << dx) : 0u;
+    for (int k0 = lane * T; k0 < D; k0 += 32 * T) {
+      // disparity index k0 + t reads strip columns D-1-k0-t .. +WX-1:
+      // column jb + cr serves t where dx = cr - (T - 1 - t) is in [0, WX)
+      const int jb = D - T - k0;
+      float slr[T], sr[T], sr2[T];
+#pragma unroll
+      for (int t = 0; t < T; ++t) slr[t] = sr[t] = sr2[t] = 0.0f;
+#pragma unroll
+      for (int cr = 0; cr < T + WX - 1; ++cr) {
+        // a column left of the strip serves only indices >= D (ignored)
+        const int c = min(max(jb + cr, 0), SW - 1);
+        float rv[WY];
+#pragma unroll
+        for (int dy = 0; dy < WY; ++dy) rv[dy] = s_r[dy * SW + c];
+        const float vr = s_vr[c], vr2 = s_vr2[c];
+#pragma unroll
+        for (int t = 0; t < T; ++t) {
+          const int dx = cr - (T - 1 - t);
+          if (dx < 0 || dx >= WX) continue;
+          sr[t] = __fadd_rn(sr[t], vr);
+          sr2[t] = __fadd_rn(sr2[t], vr2);
+          float col = 0.0f;
+#pragma unroll
+          for (int dy = 0; dy < WY; ++dy)
+            col = __fadd_rn(col, __fmul_rn(lw[dy * WX + dx], rv[dy]));
+          // a window column outside the image adds the twin's zero pad:
+          // a select, not a branch, so the unrolled body stays one block
+          slr[t] = __fadd_rn(slr[t], (xin & (1u << dx)) ? col : 0.0f);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < T; ++t) {
+        const int k = k0 + t;
+        if (k >= D) break;
+        const float cost = zncc_cost(p, u, hx, p.dmin + k, slr[t], sr[t],
+                                     sr2[t], m_l, sigma_l);
+        if (before(cost, k, bc, bi)) {
+          bc = cost;
+          bi = k;
+        }
+      }
+    }
+  } else {
+    for (int k = lane; k < D; k += 32) {
+      const int j = D - 1 - k;   // strip column of image column u - d - hx
       float Sr = 0.0f, Sr2 = 0.0f, Slr = 0.0f;
       for (int dx = 0; dx < wx; ++dx) {
         Sr = __fadd_rn(Sr, s_vr[j + dx]);
         Sr2 = __fadd_rn(Sr2, s_vr2[j + dx]);
-      }
-      for (int dx = 0; dx < wx; ++dx) {
         float col = 0.0f;
         const int x = x0 + dx;
         if (x >= 0 && x < p.W) {
@@ -178,59 +286,62 @@ __global__ void __launch_bounds__(BM_MAX_THREADS)
         }
         Slr = __fadd_rn(Slr, col);
       }
-      float m_r, sigma_r;
-      moments(Sr, Sr2, p.inv_area, &m_r, &sigma_r);
-      const float ncc = __fdiv_rn(
-          __fsub_rn(__fmul_rn(Slr, p.inv_area), __fmul_rn(m_l, m_r)),
-          __fmul_rn(sigma_l, sigma_r));
-      cost = __fmul_rn(0.5f, __fsub_rn(1.0f, ncc));
-    }
-    if (before(cost, k, bc, bi)) {
-      bc = cost;
-      bi = k;
+      const float cost = zncc_cost(p, u, hx, p.dmin + k, Slr, Sr, Sr2, m_l,
+                                   sigma_l);
+      if (before(cost, k, bc, bi)) {
+        bc = cost;
+        bi = k;
+      }
     }
   }
   for (int off = 16; off > 0; off >>= 1) {
-    const float oc = __shfl_down_sync(0xffffffffu, bc, off);
-    const int oi = __shfl_down_sync(0xffffffffu, bi, off);
+    const float oc = __shfl_xor_sync(0xffffffffu, bc, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
     if (before(oc, oi, bc, bi)) {
       bc = oc;
       bi = oi;
     }
   }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_warps = (blockDim.x + 31) >> 5;
   if (lane == 0) {
-    s_wc[warp] = bc;
-    s_wi[warp] = bi;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < n_warps; ++w) {
-      if (before(s_wc[w], s_wi[w], bc, bi)) {
-        bc = s_wc[w];
-        bi = s_wi[w];
-      }
-    }
     p.best[n] = bi;
     p.best_cost[n] = bc;
   }
 }
 
-static size_t smem_floats(int wy, int wx, int D) {
-  const size_t SW = (size_t)wx + D - 1;
-  return (size_t)wy * wx + (size_t)wy * SW + 2 * SW + 3 * (size_t)wx + 2 +
-         64;
+typedef void (*BmKernel)(const BmParams);
+
+// the instantiation for a (wy, wx) patch and T disparities a lane, as
+// ops/block_match.py::launch_plan picks it: 7x15 and 15x7 with T in
+// BM_T_MIN..BM_T_MAX, any other patch with T = 1; nullptr otherwise
+static BmKernel kernel_for(int wy, int wx, int T) {
+#define BM_CASES(Y, X)                                   \
+  if (wy == Y && wx == X) {                              \
+    switch (T) {                                         \
+      case 2: return block_match_kernel<Y, X, 2>;        \
+      case 3: return block_match_kernel<Y, X, 3>;        \
+      case 4: return block_match_kernel<Y, X, 4>;        \
+      case 5: return block_match_kernel<Y, X, 5>;        \
+      default: return nullptr;                           \
+    }                                                    \
+  }
+  BM_CASES(7, 15)
+  BM_CASES(15, 7)
+#undef BM_CASES
+  return T == 1 ? block_match_kernel<0, 0, 1> : nullptr;
 }
 
 extern "C" int esvo_block_match(const void* L, const void* R, const void* ui,
                                 const void* vi, void* best, void* best_cost,
                                 void* dark, int H, int W, int N, int dmin,
-                                int dmax, int hy, int hx, void* stream) {
+                                int dmax, int hy, int hx, int T, int warps,
+                                void* stream) {
   if (H < 1 || W < 1 || N < 0 || dmin < 0 || dmax < dmin || hy < 0 ||
-      hx < 0)
+      hx < 0 || warps < 1 || warps > BM_MAX_WARPS)
     return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaSuccess;
+  const int wy = 2 * hy + 1, wx = 2 * hx + 1;
+  const BmKernel fn = kernel_for(wy, wx, T);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   BmParams p;
   p.L = (const float*)L;
   p.R = (const float*)R;
@@ -241,23 +352,42 @@ extern "C" int esvo_block_match(const void* L, const void* R, const void* ui,
   p.dark = (float*)dark;
   p.H = H;
   p.W = W;
+  p.N = N;
   p.dmin = dmin;
   p.dmax = dmax;
   p.hy = hy;
   p.hx = hx;
-  const int area = (2 * hy + 1) * (2 * hx + 1);
-  p.inv_area = 1.0f / (float)area;   // IEEE float division on the host
-  const int D = dmax - dmin + 1;
-  int threads = ((D + 31) / 32) * 32;
-  if (threads > BM_MAX_THREADS) threads = BM_MAX_THREADS;
-  const size_t smem = smem_floats(2 * hy + 1, 2 * hx + 1, D) * sizeof(float);
+  p.warp_floats = bm_warp_floats(wy, wx, dmax - dmin + 1);
+  p.inv_area = 1.0f / (float)(wy * wx);   // IEEE float division on the host
+  const size_t smem = (size_t)warps * p.warp_floats * sizeof(float);
   // within the 48 KB a block takes without the opt-in attribute (the
   // wrapper refuses a wider strip), so nothing is set before a capture
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   void* args[] = {(void*)&p};
-  cudaError_t err = cudaLaunchKernel((const void*)block_match_kernel,
-                                     dim3(N), dim3(threads), args, smem,
-                                     (cudaStream_t)stream);
+  cudaError_t err = cudaLaunchKernel((const void*)fn, dim3((N + warps - 1) / warps),
+                         dim3(32 * warps), args, smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// info: blocks an SM holds (occupancy calculator), registers and local
+// (spill) bytes a thread (CUDA runtime), for the plan's instantiation
+extern "C" int esvo_block_match_kernel_info(int wy, int wx, int T, int warps,
+                                            int n_disp, int* info) {
+  const BmKernel fn = kernel_for(wy, wx, T);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, (const void*)fn);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem =
+      (size_t)warps * bm_warp_floats(wy, wx, n_disp) * sizeof(float);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, (const void*)fn,
+                                                      32 * warps, smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = blocks;
+  info[1] = attr.numRegs;
+  info[2] = (int)attr.localSizeBytes;
+  info[3] = (int)smem;
+  return (int)cudaSuccess;
 }

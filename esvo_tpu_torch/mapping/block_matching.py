@@ -6,7 +6,8 @@ its D ZNCC costs. ``best_disparity`` picks how, by configuration:
 
 - on CUDA float32 surfaces with the "slice" (or "auto") strategy and a
   strip that fits a block, one launch of kernel K6 (ops/block_match.py,
-  csrc/block_match.cu): a block an event, bit for bit the twin below;
+  csrc/block_match.cu): a warp an event, templated on the patch, bit for
+  bit the twin below;
 - otherwise its plain twin ``best_disparity_plain``, on every device: the
   ZNCC cost of each pixel and disparity from separable box sums over the
   dense surfaces, each event's D costs gathered inside the disparity
@@ -196,8 +197,9 @@ def _volume_matmul(ts_left, ts_right, S_r, S_r2, m_l, sigma_l, flat,
 def kernel_takes(ts_left: torch.Tensor, wy: int, wx: int, n_disp: int,
                  strategy: str) -> bool:
     """Whether ``best_disparity`` hands CUDA surfaces to K6: the "slice"
-    (or "auto") strategy, float32 surfaces, and a (wy, wx + n_disp - 1)
-    strip that fits a block's shared memory."""
+    (or "auto") strategy, float32 surfaces, and an event's (wy, wx +
+    n_disp - 1) strip that fits a block's shared memory. Any such patch
+    runs a kernel (``block_match.launch_plan`` picks which)."""
     return (strategy != "matmul" and ts_left.dtype == torch.float32
             and block_match.shared_bytes(wy, wx, n_disp)
             <= block_match.MAX_SHARED_BYTES)

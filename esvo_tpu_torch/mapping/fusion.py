@@ -7,10 +7,14 @@
 3. candidates are ordered by (pixel, variance, original index) — two
    stable sorts — and the best K per pixel go to per-pixel slots;
 4. a K-step fold applies the reference's per-pixel rules (insert /
-   compatible fuse / occlusion / replace): on a CUDA float32 grid one
-   launch of kernel K7 (ops/fuse.py, csrc/fuse.cu), one thread a pixel,
-   bit for bit its plain twin ``fold_slots_plain``, which runs everything
-   else as (H, W) elementwise math.
+   compatible fuse / occlusion / replace).
+
+On a CUDA float32 grid steps 3-4 after the sorts are one launch of
+kernel K7 (ops/fuse.py, csrc/fuse.cu): one thread a pixel reads its run
+of the sorted order (its slots) and folds it, bit for bit the plain twin
+``_assign_slots`` + ``fold_slots_plain`` (a rank a candidate, a
+(K, H, W) slot scatter and (H, W) elementwise math), which runs
+everything else.
 """
 from __future__ import annotations
 
@@ -127,9 +131,10 @@ def propagate_points(est: DepthEstimates, T_frame_world: torch.Tensor,
                       p_cam=p, valid=ok)
 
 
-def _splat(cand: Candidates, height: int, width: int, radius: int):
-    """Expand each candidate to its 4 (radius 0) or (2r+1)^2 target
-    pixels. Returns (tiled candidates, pixel ids)."""
+def _splat_pixels(cand: Candidates, height: int, width: int, radius: int):
+    """Each candidate's 4 (radius 0) or (2r+1)^2 target pixels: (pix,
+    inb), both (M, Kt), the pixel id clamped into the image and whether
+    the unclamped pixel lies inside."""
     col = torch.floor(cand.x[:, 0]).to(torch.int64)
     row = torch.floor(cand.x[:, 1]).to(torch.int64)
     if radius == 0:
@@ -137,7 +142,6 @@ def _splat(cand: Candidates, height: int, width: int, radius: int):
     else:
         r = range(-radius, radius + 1)
         offs = [(dy, dx) for dy in r for dx in r]
-    K = len(offs)
     dev = col.device
     dy = constant(tuple(o[0] for o in offs), torch.int64, dev)
     dx = constant(tuple(o[1] for o in offs), torch.int64, dev)
@@ -146,6 +150,14 @@ def _splat(cand: Candidates, height: int, width: int, radius: int):
     inb = (rows >= 0) & (rows < height) & (cols >= 0) & (cols < width)
     pix = torch.clamp(rows, 0, height - 1) * width \
         + torch.clamp(cols, 0, width - 1)
+    return pix, inb
+
+
+def _splat(cand: Candidates, height: int, width: int, radius: int):
+    """Expand each candidate to its 4 (radius 0) or (2r+1)^2 target
+    pixels. Returns (tiled candidates, pixel ids)."""
+    pix, inb = _splat_pixels(cand, height, width, radius)
+    K = pix.shape[1]
 
     def tile(a):
         return a.repeat_interleave(K, dim=0)
@@ -168,17 +180,25 @@ def _segment_rank(sorted_ids: torch.Tensor) -> torch.Tensor:
     return ar - torch.cummax(start_pos, dim=0).values
 
 
+def _sort_slots(pix, valid, val_key, hw: int):
+    """The lexicographic (pixel, value, original index) order of the
+    tiled candidates: a stable sort by value, then a stable sort by
+    pixel. Invalid candidates key as (hw, inf) and sort last. `val_key`
+    broadcasts against `valid` (pix, valid: (M * Kt,) or (M, Kt), read
+    in row-major order). Returns (order, pix_sorted), both (M * Kt,)."""
+    vk = torch.where(valid, val_key, torch.full_like(val_key, float("inf")))
+    pk = torch.where(valid, pix, torch.full_like(pix, hw)).reshape(-1)
+    order = torch.sort(vk.reshape(-1), stable=True).indices
+    order = order[torch.sort(pk[order], stable=True).indices]
+    return order, pk[order]
+
+
 def _assign_slots(pix, valid, val_key, hw: int, K: int):
     """Slot id per candidate (rank*hw + pix, or hw*K = dropped) from the
-    lexicographic (pixel, value, original index) order: a stable sort by
-    value, then a stable sort by pixel. Invalid candidates key as
-    (hw, inf) and sort last."""
+    lexicographic (pixel, value, original index) order (``_sort_slots``).
+    Returns (slot, num_dropped)."""
     M = pix.shape[0]
-    vk = torch.where(valid, val_key, torch.full_like(val_key, float("inf")))
-    pk = torch.where(valid, pix, torch.full_like(pix, hw))
-    order = torch.sort(vk, stable=True).indices
-    order = order[torch.sort(pk[order], stable=True).indices]
-    pix_sorted = pk[order]
+    order, pix_sorted = _sort_slots(pix, valid, val_key, hw)
     rank = _segment_rank(pix_sorted)
     keep = (pix_sorted < hw) & (rank < K)
     slot_sorted = torch.where(keep, rank * hw + pix_sorted,
@@ -187,6 +207,17 @@ def _assign_slots(pix, valid, val_key, hw: int, K: int):
     slot[order] = slot_sorted
     num_dropped = torch.sum((pix_sorted < hw) & (rank >= K))
     return slot, num_dropped
+
+
+def run_bounds(pix_sorted, hw: int, K: int):
+    """K7's slot placement, plain: each pixel's run [start, end) of
+    ``_sort_slots``' order (its slots are the first min(end - start, K)
+    entries, in slot order) and num_dropped, the runs' entries past K.
+    Both bounds are (hw,) int64 from torch.searchsorted."""
+    q = torch.arange(hw, dtype=pix_sorted.dtype, device=pix_sorted.device)
+    start = torch.searchsorted(pix_sorted, q)
+    end = torch.searchsorted(pix_sorted, q, right=True)
+    return start, end, torch.clamp(end - start - K, min=0).sum()
 
 
 def _student_t_update(invD_a, scale2_a, nu_a, invD_b, scale2_b, nu_b):
@@ -215,16 +246,6 @@ def _scatter_slots(slot_idx, src, H: int, W: int, K: int) -> torch.Tensor:
     return buf[:-1].reshape(K, H, W)
 
 
-def slot_ids(slot_idx, M: int, H: int, W: int, K: int) -> torch.Tensor:
-    """(K, H, W) int32: slot k of pixel q holds the id of its candidate
-    among the M tiled ones, or -1 (the dropped ones land in a spare cell
-    that is cut off)."""
-    dev = slot_idx.device
-    ids = torch.full((K * H * W + 1,), -1, dtype=torch.int32, device=dev)
-    ids[slot_idx] = torch.arange(M, dtype=torch.int32, device=dev)
-    return ids[:-1].view(K, H, W)
-
-
 def camera_words(P: torch.Tensor) -> torch.Tensor:
     """The 12 words K7 back-projects with: inv3(P[:, :3]) row-major,
     then P[:, 3] (on P's device: no host copy)."""
@@ -243,26 +264,31 @@ def fuse_frame(grid: DepthGrid, cand: Candidates, camera: Camera,
     """Fuse propagated candidates into the grid: the reference's
     per-pixel rules on the best K candidates per pixel, in
     variance-ascending order. Returns (grid, num_fusions, num_dropped).
-    The splat and the slot sort run in torch; the fold is kernel K7 on a
-    CUDA grid that ``fold_takes`` accepts and ``fold_slots_plain``
-    otherwise, on every device."""
+    The splat and the two sorts run in torch; on a CUDA grid that
+    ``fold_takes`` accepts, kernel K7 places the slots and folds them
+    (``_assign_slots`` + ``fold_slots_plain`` otherwise, on every
+    device)."""
     H, W = grid.inv_depth.shape
     K = cfg.max_candidates_per_pixel
-    tiled, pix = _splat(cand, H, W, cfg.fusion_radius)
-    slot_idx, num_dropped = _assign_slots(pix, tiled.valid, tiled.variance,
-                                          H * W, K)
     if not (grid.inv_depth.is_cuda and fold_takes(grid)):
-        grid, num_fused = fold_slots_plain(grid, tiled, slot_idx, camera, cfg)
+        tiled, pix = _splat(cand, H, W, cfg.fusion_radius)
+        slot_idx, num_dropped = _assign_slots(pix, tiled.valid,
+                                              tiled.variance, H * W, K)
+        grid, num_fused = fold_slots_plain(grid, tiled, slot_idx, camera,
+                                           cfg)
         return grid, num_fused, num_dropped
-    out, num_fused = fuse_op.fold_slots(
+    pix, inb = _splat_pixels(cand, H, W, cfg.fusion_radius)
+    order, pix_sorted = _sort_slots(pix, cand.valid[:, None] & inb,
+                                    cand.variance[:, None], H * W)
+    out, num_fused, num_dropped = fuse_op.fuse_runs(
         dict(invD=grid.inv_depth, var=grid.variance, s2=grid.scale2,
              nu=grid.nu, res=grid.residual, age=grid.age, x=grid.x,
              p=grid.p_cam),
-        dict(invD=tiled.inv_depth, var=tiled.variance, s2=tiled.scale2,
-             nu=tiled.nu, res=tiled.residual,
-             age=tiled.age.to(torch.int32), x=tiled.x),
-        slot_ids(slot_idx, pix.shape[0], H, W, K),
-        camera_words(camera.params.P), tdist=cfg.ls_norm == "Tdist")
+        dict(invD=cand.inv_depth, var=cand.variance, s2=cand.scale2,
+             nu=cand.nu, res=cand.residual, age=cand.age.to(torch.int32),
+             x=cand.x),
+        order, pix_sorted, camera_words(camera.params.P), K=K,
+        tdist=cfg.ls_norm == "Tdist")
     grid = DepthGrid(inv_depth=out["invD"], variance=out["var"],
                      scale2=out["s2"], nu=out["nu"], residual=out["res"],
                      age=out["age"], x=out["x"], p_cam=out["p"])
@@ -271,9 +297,10 @@ def fuse_frame(grid: DepthGrid, cand: Candidates, camera: Camera,
 
 def fold_slots_plain(grid: DepthGrid, tiled: Candidates, slot_idx,
                      camera: Camera, cfg: FusionConfig):
-    """K7's plain twin: scatter the 8 channels of the kept candidates to
-    their (K, H, W) slots, then fold the K slots into the grid as (H, W)
-    elementwise math. Returns (grid, num_fusions)."""
+    """K7's plain twin after ``_assign_slots``: scatter the 8 channels of
+    the kept candidates to their (K, H, W) slots, then fold the K slots
+    into the grid as (H, W) elementwise math. Returns (grid,
+    num_fusions)."""
     H, W = grid.inv_depth.shape
     K = cfg.max_candidates_per_pixel
     dt = tiled.inv_depth.dtype

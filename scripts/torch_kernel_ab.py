@@ -1,5 +1,6 @@
-"""Time K4 (the tracker's LM scan) and K5 (the regularization) and the
-paths they sit on, for one checkout of the repository, on the card.
+"""Time K4-K7 (the tracker's LM scan, the regularization, block
+matching's disparity scan, the fusion fold) and the paths they sit on,
+for one checkout of the repository, on the card.
 
     python3 scripts/torch_kernel_ab.py [--root CHECKOUT] [--label NAME]
         [--skip-loops]
@@ -15,8 +16,18 @@ each with the card's name and power limit:
   both rigs (2000 map points): the preset (batch 300, 10 rounds), batch
   32, 1 round, and a map of 600 points in the 2000 slots (6 empty
   rounds);
+- ``k6``: block matching's disparity scan through
+  ``block_matching.best_disparity`` (K6 on the card) at the rpg (1,000
+  events, D = 40) and DSEC (10,000 events, D = 151, smoothed) presets on
+  ``chip_smoke.bm_world``'s surfaces;
+- ``k7``: ``fusion.fuse_frame`` at the rpg (4,000 candidates, radius 0)
+  and DSEC (40,000, radius 1: the fuse stage of a DSEC rebuild) presets
+  on ``chip_smoke.fuse_world``'s grid: device ms a call by kernel group
+  (K7 by its profiler name, the sorts, the cummax of a rank, the rest)
+  and launches a call;
 - ``cycle``: one profiled rpg and DSEC mapping cycle
-  (``chip_smoke.run_cycle``): wall and device-busy ms, launches;
+  (``chip_smoke.run_cycle``): wall and device-busy ms, launches, its
+  heaviest kernels;
 - ``resident``: the rpg resident loop (``chip_smoke.run_resident``):
   ms a tick, ticks/s, the replay's ms a tick and kernels a roll.
 Only the functions that both checkouts' ``chip_smoke.py`` share are
@@ -77,6 +88,71 @@ def measure_k4(cs, label: str, card: str, iters: int) -> None:
                    kernel_ms=out))
 
 
+def measure_k6(cs, label: str, card: str, iters: int) -> None:
+    for shape, preset, n, disp in (("rpg", cs.RPG, 1000, 8),
+                                   ("dsec", cs.DSEC, 10000, 40)):
+        bcfg = cs.SystemConfig.from_dict(preset).bm
+        rig = cs.make_rig(shape, "cuda")
+        H, W = rig.left.height, rig.left.width
+        ts_l, ts_r, x, _ = cs.bm_world(rig, n, disp, seed=21)
+        if bcfg.smooth_time_surface:
+            ts_l = cs.tsf.gaussian_blur(ts_l, 5)
+            ts_r = cs.tsf.gaussian_blur(ts_r, 5)
+        ui = torch.clamp(torch.floor(x[:, 0]).long(), 0, W - 1)
+        vi = torch.clamp(torch.floor(x[:, 1]).long(), 0, H - 1)
+        hy, hx = (bcfg.patch_size_y - 1) // 2, (bcfg.patch_size_x - 1) // 2
+        t = cs.timed(lambda: cs.bm.best_disparity(
+            ts_l, ts_r, ui, vi, bcfg.min_disparity, bcfg.max_disparity, hy,
+            hx, "slice"), iters)
+        _line(dict(ab="k6", label=label, card=card, shape=shape, events=n,
+                   disparities=bcfg.max_disparity - bcfg.min_disparity + 1,
+                   kernel_ms=t["ms"], call_ms=t["call_ms"],
+                   timing=t["timing"]))
+
+
+def _by_group(cs, fn, iters: int) -> dict:
+    """Device ms a call of fn by kernel group, and launches a call."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    # K7 by its profiler name, torch.cummax's scan, torch.sort's radix
+    # sort kernels (named ...Sort... / ...sort...)
+    groups = {"k7": cs.KERNEL_NAMES["fuse"], "cummax":
+              "scan_innermost_dim_with_indices", "sort": "sort"}
+    ms = dict.fromkeys([*groups, "other"], 0.0)
+    launches = 0
+    for e in prof.key_averages():
+        if e.device_type != cs.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        key = next((g for g, pat in groups.items()
+                    if pat in e.key.lower()), "other")
+        ms[key] += us / 1e3 / iters
+        launches += e.count
+    return dict(ms=ms, total_ms=sum(ms.values()), launches=launches / iters)
+
+
+def measure_k7(cs, label: str, card: str, iters: int) -> None:
+    for shape, preset, m in (("rpg", cs.RPG, 4000), ("dsec", cs.DSEC, 40000)):
+        cfg = cs.SystemConfig.from_dict(preset)
+        rig = cs.make_rig(shape, "cuda")
+        H, W = rig.left.height, rig.left.width
+        radius = cfg.fusion.fusion_radius
+        grid, cand = cs.fuse_world(H, W, m, seed=31 + radius)
+        fcfg = cs.fu.FusionConfig(
+            ls_norm="Tdist", fusion_radius=radius,
+            max_candidates_per_pixel=cfg.fusion.max_candidates_per_pixel)
+        g = _by_group(cs, lambda: cs.fu.fuse_frame(grid, cand, rig.left,
+                                                   fcfg), iters)
+        _line(dict(ab="k7", label=label, card=card, shape=shape,
+                   candidates=m, radius=radius, **g))
+
+
 def measure_loops(cs, label: str, card: str) -> None:
     cfgs = {n: cs.SystemConfig.from_dict(d)
             for n, d in (("rpg", cs.RPG), ("dsec", cs.DSEC))}
@@ -92,7 +168,7 @@ def measure_loops(cs, label: str, card: str) -> None:
                    **{k: prof[k] for k in (
                        "wall_ms", "profiled_wall_ms", "device_busy_ms",
                        "idle_share", "idle_share_unprofiled",
-                       "device_launches")},
+                       "device_launches", "top")},
                    estimate_ms=[r["estimate_ms"] for r in recs],
                    rebuild_ms=[r["rebuild_ms"] for r in recs],
                    valid=[r["valid"] for r in recs],
@@ -128,6 +204,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     cs._build.build([info["source"].rsplit("/", 1)[1]
                      for info in cs.KERNELS.values()])
+    measure_k6(cs, label, card, args.iters)
+    measure_k7(cs, label, card, args.iters)
     measure_k5(cs, label, card, args.iters)
     measure_k4(cs, label, card, args.iters)
     if not args.skip_loops:

@@ -21,6 +21,10 @@ plain twin (mapping/block_matching.py).
   "matmul" volume take the twin; the wrapper's checks raise on a wrong
   dtype, shape or a strip too wide for a block, and a CPU tensor never
   launches.
+- The launch plan (``block_match.launch_plan``): the 7x15 and 15x7
+  instantiations with T = ceil(D / 32) disparities a lane within 2..5
+  (more passes past 160), the generic one for any other patch, and as
+  many events a block as fit 48 KB.
 The kernel itself runs on the card only (tests/test_torch_cuda.py).
 """
 import numpy as np
@@ -248,9 +252,11 @@ def test_kernel_takes_the_slice_strategy_in_float32():
     assert tbm.kernel_takes(ts, 7, 15, 40, "slice")
     assert not tbm.kernel_takes(ts, 7, 15, 40, "matmul")
     assert not tbm.kernel_takes(ts.double(), 7, 15, 40, "slice")
-    # a strip wider than a block's 48 KB goes to the twin
-    assert block_match.shared_bytes(7, 15, 151) == 4 * (
-        105 + 7 * 165 + 2 * 165 + 45 + 66)
+    # an event's window (whole float4s), its column sums and the strip's,
+    # and the strip, 1,638 words rounded up to whole float4s; a strip
+    # wider than a block's 48 KB goes to the twin
+    assert 108 + 45 + 2 * 165 + 7 * 165 == 1638
+    assert block_match.shared_bytes(7, 15, 151) == 4 * 1640
     assert not tbm.kernel_takes(ts, 15, 15, 1000, "slice")
 
 
@@ -306,3 +312,49 @@ def test_wrapper_refuses_a_wide_strip_and_cpu_tensors():
         block_match.best_disparity(**_wrapper_args(), dmin=0, dmax=40, hy=3,
                                    hx=7)
     assert block_match.KERNEL.launches == before
+
+
+@pytest.mark.parametrize("wy, wx, n_disp, patch, t, passes, events", [
+    (7, 15, 40, "7x15", 2, 1, 4),       # rpg
+    (7, 15, 151, "7x15", 5, 1, 4),      # DSEC
+    (15, 7, 151, "15x7", 5, 1, 4),      # up_down's swapped patch
+    (15, 7, 40, "15x7", 2, 1, 4),
+    (7, 15, 20, "7x15", 2, 1, 4),       # at least 2 a lane
+    (7, 15, 100, "7x15", 4, 1, 4),
+    (7, 15, 300, "7x15", 5, 2, 4),      # a second pass past 160
+    (7, 15, 1200, "7x15", 5, 8, 1),     # one event fills a block
+    (5, 9, 40, "generic", 1, 2, 4),
+    (15, 15, 151, "generic", 1, 5, 3),
+    (7, 13, 151, "generic", 1, 5, 4),
+], ids=["rpg", "dsec", "swapped-dsec", "swapped-rpg", "small-range",
+        "T4", "two-passes", "one-event-a-block", "generic-5x9",
+        "generic-15x15", "generic-7x13"])
+def test_launch_plan_picks_the_instantiation(wy, wx, n_disp, patch, t,
+                                             passes, events):
+    plan = block_match.launch_plan(wy, wx, n_disp)
+    assert (plan["patch"], plan["T"], plan["passes"],
+            plan["events_per_block"]) == (patch, t, passes, events)
+    name = (f"block_match_kernel<{wy}, {wx}, {t}>" if patch != "generic"
+            else "block_match_kernel<0, 0, 1>")
+    assert plan["instantiation"] == name
+    assert plan["threads"] == 32 * events
+    assert plan["shared_bytes"] == events * block_match.shared_bytes(
+        wy, wx, n_disp) <= block_match.MAX_SHARED_BYTES
+    # every patch the dispatch rule takes has a plan that launches
+    assert tbm.kernel_takes(torch.zeros(4, 4), wy, wx, n_disp, "slice")
+
+
+@pytest.mark.parametrize("wy, wx, n_disp, lane, warp", [
+    (7, 15, 40, 72.0, (45 + 27 + 16 * 9) / 40),      # rpg: T = 2
+    (7, 15, 151, 34.2, (45 + 27 + 19 * 9) / 151),    # DSEC: T = 5
+    (5, 9, 40, 108, (27 + 2 * 108) / 40),            # generic, 2 passes
+], ids=["rpg", "dsec", "generic-5x9"])
+def test_shared_loads_counted_from_the_plan(wy, wx, n_disp, lane, warp):
+    """chip_smoke.k6_shared_loads: a templated lane reads each of its T +
+    wx - 1 strip columns' wy words and 2 column sums once for its T
+    pairs; the generic kernel reads 2 words a product and 2 sums a
+    column, a pair a lane a pass."""
+    import chip_smoke
+    got = chip_smoke.k6_shared_loads(wy, wx, n_disp)
+    assert got["lane"] == pytest.approx(lane)
+    assert got["warp"] == pytest.approx(warp)

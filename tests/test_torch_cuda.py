@@ -45,7 +45,13 @@ replay. A float64 grid regularizes on the card through regularize_plain
 disparity scan) and K7 (the fusion fold) bit for bit their twins at the
 rpg and DSEC shapes (chip_smoke's checks), bitwise across repeat
 launches; neither match_events_stats nor fuse_frame takes its twin on a
-CUDA float32 tensor; one K6 and one K7 launch inside a resident replay.
+CUDA float32 tensor (fuse_frame runs no rank and no slot plane: K7
+places the slots from the sorted runs); one K6 and one K7 launch inside
+a resident replay. K6's instantiations (7x15 and 15x7 at 1-5
+disparities a lane and two passes, the generic one) bit for bit the
+twin, each without spills; K7's run bounds and drop count equal
+run_bounds' and _assign_slots', also where a block's stretch of the
+sorted order is searched in L2.
 
 Run on a machine with an NVIDIA GPU:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
@@ -873,6 +879,7 @@ def test_block_match_kernel_is_bitwise(smoke, shape):
     n, disp = _SHAPES[shape]
     res = smoke.check_block_match(rig, cfg, n, disp, iters=3)
     assert res["bitwise"] and res["match_equal"] and res["nan_bitwise"]
+    assert all(p["bitwise"] for p in res["other_patches"].values())
     assert res["matched"] > 0.3 * n
 
 
@@ -886,6 +893,7 @@ def test_fuse_kernel_is_bitwise(smoke, shape):
                                        else smoke.DSEC)
     res = smoke.check_fuse(rig, cfg, 4 * _SHAPES[shape][0], iters=3)
     assert all(not c["differ"] for c in res["by_case"].values())
+    assert all(c["dropped"] > 0 for c in res["by_case"].values())
 
 
 def test_k6_k7_repeat_launch_is_bitwise(smoke, rig):
@@ -911,14 +919,16 @@ def test_k6_k7_repeat_launch_is_bitwise(smoke, rig):
 def test_cuda_tensor_never_takes_the_k6_k7_twins(smoke, rig, monkeypatch):
     """On CUDA float32 tensors match_events_stats ("auto" and "slice")
     launches K6 once a call and fuse_frame K7 once a call; the twins are
-    never called."""
+    never called, nor the rank placement (_assign_slots, _segment_rank)."""
     def refuse(*a, **kw):
         raise AssertionError("a CUDA tensor reached a twin")
 
     ts_l, ts_r, x, valid = smoke.bm_world(rig, 1000, 8, seed=5)
     grid, cand = smoke.fuse_world(180, 240, 4000, seed=5)
     monkeypatch.setattr(smoke.bm, "best_disparity_plain", refuse)
-    monkeypatch.setattr(smoke.fu, "fold_slots_plain", refuse)
+    for name in ("fold_slots_plain", "_assign_slots", "_segment_rank",
+                 "run_bounds"):
+        monkeypatch.setattr(smoke.fu, name, refuse)
     args = (ts_l, ts_r, x, x, torch.zeros(1000, device="cuda"), valid,
             rig.left.mask, rig)
     before = (smoke.block_match_op.KERNEL.launches,
@@ -929,3 +939,76 @@ def test_cuda_tensor_never_takes_the_k6_k7_twins(smoke, rig, monkeypatch):
     smoke.fu.fuse_frame(grid, cand, rig.left, smoke.fu.FusionConfig())
     assert (smoke.block_match_op.KERNEL.launches,
             smoke.fuse_op.KERNEL.launches) == (before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.parametrize("wy, wx, dmin, dmax", [
+    (7, 15, 1, 20), (7, 15, 1, 40), (7, 15, 0, 70), (7, 15, 0, 100),
+    (7, 15, 0, 150), (7, 15, 0, 300), (15, 7, 1, 40), (15, 7, 0, 150),
+    (5, 9, 1, 40), (3, 3, 0, 200)],
+    ids=["7x15-T1", "7x15-T2", "7x15-T3", "7x15-T4", "7x15-T5",
+         "7x15-2passes", "15x7-T2", "15x7-T5", "generic-5x9",
+         "generic-3x3"])
+def test_block_match_instantiations_are_bitwise(smoke, rig, wy, wx, dmin,
+                                                dmax):
+    """Each K6 instantiation the launch plan picks equals
+    best_disparity_plain bit for bit on bm_world's events (windows
+    clamped at every border), with NaNs in the right surface."""
+    ts_l, ts_r, x, _ = smoke.bm_world(rig, 600, 8, seed=wy * wx + dmax)
+    ts_r[::19, ::29] = float("nan")
+    ui = torch.clamp(torch.floor(x[:, 0]).long(), 0, 239)
+    vi = torch.clamp(torch.floor(x[:, 1]).long(), 0, 179)
+    kw = dict(dmin=dmin, dmax=dmax, hy=(wy - 1) // 2, hx=(wx - 1) // 2)
+    got = smoke.block_match_op.best_disparity(ts_l, ts_r, ui, vi, **kw)
+    want = smoke.bm.best_disparity_plain(ts_l, ts_r, ui, vi, dmin, dmax,
+                                         kw["hy"], kw["hx"], "slice")
+    assert all(smoke._same_bits(p, q) for p, q in zip(got, want))
+    assert bool(torch.isnan(got[1]).any()) and bool((got[1] < 1).any())
+
+
+@pytest.mark.parametrize("wy, wx, n_disp", [
+    (7, 15, 40), (7, 15, 151), (15, 7, 151), (5, 9, 40)])
+def test_block_match_plan_on_the_card(smoke, wy, wx, n_disp):
+    """The plan's instantiation exists, spills nothing and fits an SM at
+    the plan's events a block."""
+    info = smoke.block_match_op.kernel_info(wy, wx, n_disp)
+    plan = smoke.block_match_op.launch_plan(wy, wx, n_disp)
+    assert info["instantiation"] == plan["instantiation"]
+    assert info["smem_bytes"] == plan["shared_bytes"] <= 48 * 1024
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("radius", [0, 1])
+def test_fuse_drop_count_equals_the_rank(smoke, rig, radius):
+    """K7's num_dropped equals _assign_slots' and run_bounds' on the card
+    (pixels with more than K candidates), and run_bounds equals itself
+    on the CPU."""
+    grid, cand = smoke.fuse_world(180, 240, 4000, seed=8 + radius)
+    cfg = smoke.fu.FusionConfig(fusion_radius=radius)
+    _, _, dropped = smoke.fu.fuse_frame(grid, cand, rig.left, cfg)
+    tiled, pix = smoke.fu._splat(cand, 180, 240, radius)
+    _, want = smoke.fu._assign_slots(pix, tiled.valid, tiled.variance,
+                                     180 * 240, 8)
+    order, ps = smoke.fu._sort_slots(pix, tiled.valid, tiled.variance,
+                                     180 * 240)
+    start, end, nd = smoke.fu.run_bounds(ps, 180 * 240, 8)
+    cs, ce, cnd = smoke.fu.run_bounds(ps.cpu(), 180 * 240, 8)
+    assert int(dropped) == int(want) == int(nd) == int(cnd) > 0
+    assert torch.equal(start.cpu(), cs) and torch.equal(end.cpu(), ce)
+
+
+def test_fuse_long_stretch_is_bitwise(smoke, rig):
+    """A block whose stretch of the sorted order outgrows K7's shared
+    buffer searches it in L2: 3,000 candidates x 9 tiles on a 16x16 grid,
+    bit for bit the twin with its fuse and drop counts."""
+    grid, cand = smoke.fuse_world(16, 16, 3000, seed=34)
+    cfg = smoke.fu.FusionConfig(fusion_radius=1)
+    got, nf, nd = smoke.fu.fuse_frame(grid, cand, rig.left, cfg)
+    tiled, pix = smoke.fu._splat(cand, 16, 16, 1)
+    slot, want_nd = smoke.fu._assign_slots(pix, tiled.valid, tiled.variance,
+                                           256, 8)
+    want, want_nf = smoke.fu.fold_slots_plain(grid, tiled, slot, rig.left,
+                                              cfg)
+    assert int(nf) == int(want_nf) and int(nd) == int(want_nd) > 2048
+    assert all(smoke._same_bits(getattr(got, f), getattr(want, f))
+               for f in ("inv_depth", "variance", "scale2", "nu",
+                         "residual", "age", "x", "p_cam"))

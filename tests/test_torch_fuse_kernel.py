@@ -6,17 +6,26 @@
   tests/test_torch_fusion.py's cases and tolerances (occupancy on
   >= 99.9% of the cells, every field rtol 1e-5 / atol 1e-7 where both
   grids are occupied, num_fused and num_dropped equal).
+- K7's slot placement: each pixel's run of the sorted order
+  (``_sort_slots``), as ``run_bounds`` finds it with torch.searchsorted
+  (the placement's plain form), holds the same slots in the same order
+  as ``_assign_slots``' rank (the twin's (K, H, W) slot plane), and the
+  runs' entries past K are its num_dropped: at radius 0 and 1, with
+  pixels holding more than K candidates, invalid candidates, NaN
+  variances, no valid candidate, no candidate at all and a (0, 0) grid.
 - K7's order of operations: a numpy float32 reference of the fold, one
-  thread's pixel at a time in csrc/fuse.cu's order (slot by slot from the
-  (K, H, W) ids that ``slot_ids`` builds, one float32 operation at a
-  time, NaN kept by minimum and clamp, nu = inf on the Gaussian branch,
-  the age through float then truncated), equals ``fold_slots_plain``
-  bit for bit in all 11 planes and the fuse count, in Tdist and l2, at
-  fusion radius 0 and 1, on chip_smoke.fuse_world's grid (a fifth of nu
-  infinite) whose candidates hit insert, fuse, replace and occluded
-  cells.
+  thread's pixel at a time in csrc/fuse.cu's order (slot by slot through
+  the pixel's run of the sorted order, each tiled id read as its
+  untiled candidate, one float32 operation at a time, NaN kept by
+  minimum and clamp, nu = inf on the Gaussian branch, the age through
+  float then truncated), equals ``fuse_frame``'s twin
+  (``_assign_slots`` + ``fold_slots_plain``) bit for bit in all 11
+  planes, the fuse and drop counts, in Tdist and l2, at fusion radius 0
+  and 1, on chip_smoke.fuse_world's grid (a fifth of nu infinite) whose
+  candidates hit insert, fuse, replace and occluded cells.
 - The dispatch rule (``fold_takes``: float32 grids) and the wrapper's
-  checks (dtype, shape, device; a CPU tensor never launches).
+  checks (dtype, shape, device, whole tiles; a CPU tensor never
+  launches).
 The kernel itself runs on the card only (tests/test_torch_cuda.py).
 """
 import numpy as np
@@ -39,7 +48,7 @@ f32 = np.float32
 def twin_only(monkeypatch):
     def refuse(*a, **kw):
         raise AssertionError("a CPU tensor reached K7's wrapper")
-    monkeypatch.setattr(fuse_op, "fold_slots", refuse)
+    monkeypatch.setattr(fuse_op, "fuse_runs", refuse)
 
 
 @pytest.mark.parametrize("ls_norm,radius,nu_inf", [
@@ -84,15 +93,18 @@ def _back_project(A, b, x0, x1, inv):
                 + f32(A[i, 2] * r[2])) for i in range(3)]
 
 
-def k7_reference(grid, tiled, ids, cam, tdist):
-    """The fold of csrc/fuse.cu on numpy float32, pixel by pixel; returns
-    the 11 planes, num_fused and how often each rule fired."""
+def k7_reference(grid, cand, order, start, end, Kt, K, cam, tdist):
+    """The fold of csrc/fuse.cu on numpy float32, pixel by pixel: the
+    first min(run, K) entries of the pixel's run [start, end) of the
+    sorted order, each tiled id read as its candidate id // Kt; returns
+    the 11 planes, num_fused, num_dropped and how often each rule
+    fired."""
     A, b = cam[:9].reshape(3, 3), cam[9:]
-    K, Hh, Ww = ids.shape
+    Hh, Ww = grid["invD"].shape
     g = {k: v.copy() for k, v in grid.items()}
-    c = tiled
+    c = cand
     fires = dict(insert=0, fuse=0, replace=0, occluded=0)
-    fused = 0
+    fused = dropped = 0
     for q in range(Hh * Ww):
         y, x = divmod(q, Ww)
         gi, gv, gs, gn, gr = (g[k][y, x] for k in ("invD", "var", "s2", "nu",
@@ -100,9 +112,11 @@ def k7_reference(grid, tiled, ids, cam, tdist):
         ga = int(g["age"][y, x])
         gx0, gx1 = g["x"][y, x]
         gp = list(g["p"][y, x])
-        for k in range(K):
-            i = ids[k, y, x]
-            if i < 0 or not c["invD"][i] > 0:
+        run = int(end[q] - start[q])
+        dropped += max(run - K, 0)
+        for k in range(min(run, K)):
+            i = int(order[start[q] + k]) // Kt
+            if not c["invD"][i] > 0:
                 continue
             ci, cv, cs, cn, cr = (c[n][i] for n in ("invD", "var", "s2", "nu",
                                                    "res"))
@@ -166,7 +180,7 @@ def k7_reference(grid, tiled, ids, cam, tdist):
             g[k][y, x] = v
         g["x"][y, x] = (gx0, gx1)
         g["p"][y, x] = gp
-    return g, fused, fires
+    return g, fused, dropped, fires
 
 
 @pytest.mark.parametrize("ls_norm, radius", [
@@ -178,23 +192,26 @@ def test_kernel_order_equals_twin_bitwise(ls_norm, radius):
     cfg = tfu.FusionConfig(ls_norm=ls_norm, fusion_radius=radius,
                            max_candidates_per_pixel=K)
     rig = chip_smoke.make_rig("rpg", "cpu")
-    want_grid, want_fused, _ = tfu.fuse_frame(grid, cand, rig.left, cfg)
-    tiled, pix = tfu._splat(cand, Hh, Ww, radius)
-    slot_idx, _ = tfu._assign_slots(pix, tiled.valid, tiled.variance,
-                                    Hh * Ww, K)
-    ids = tfu.slot_ids(slot_idx, pix.shape[0], Hh, Ww, K).numpy()
+    want_grid, want_fused, want_dropped = tfu.fuse_frame(grid, cand,
+                                                         rig.left, cfg)
+    pix, inb = tfu._splat_pixels(cand, Hh, Ww, radius)
+    order, pix_sorted = tfu._sort_slots(pix, cand.valid[:, None] & inb,
+                                        cand.variance[:, None], Hh * Ww)
+    start, end, _ = tfu.run_bounds(pix_sorted, Hh * Ww, K)
     cam = tfu.camera_words(rig.left.params.P).numpy()
     planes = dict(invD=grid.inv_depth, var=grid.variance, s2=grid.scale2,
                   nu=grid.nu, res=grid.residual, age=grid.age, x=grid.x,
                   p=grid.p_cam)
-    cands = dict(invD=tiled.inv_depth, var=tiled.variance, s2=tiled.scale2,
-                 nu=tiled.nu, res=tiled.residual, age=tiled.age, x=tiled.x)
-    got, fused, fires = k7_reference(
+    cands = dict(invD=cand.inv_depth, var=cand.variance, s2=cand.scale2,
+                 nu=cand.nu, res=cand.residual, age=cand.age, x=cand.x)
+    got, fused, dropped, fires = k7_reference(
         {k: v.numpy() for k, v in planes.items()},
-        {k: v.numpy() for k, v in cands.items()}, ids, cam,
+        {k: v.numpy() for k, v in cands.items()}, order.numpy(),
+        start.numpy(), end.numpy(), pix.shape[1], K, cam,
         ls_norm == "Tdist")
     assert min(fires.values()) > 0, fires
     assert fused == int(want_fused) == fires["fuse"]
+    assert dropped == int(want_dropped) > 0
     for name, key in (("inv_depth", "invD"), ("variance", "var"),
                       ("scale2", "s2"), ("nu", "nu"), ("residual", "res"),
                       ("age", "age"), ("x", "x"), ("p_cam", "p")):
@@ -202,6 +219,88 @@ def test_kernel_order_equals_twin_bitwise(ls_norm, radius):
             getattr(want_grid, name).numpy().view(np.uint8),
             got[key].view(np.uint8), err_msg=name)
     assert np.isinf(got["nu"]).any()
+
+
+# --- K7's slot placement: runs of the sorted order against the rank ------
+
+def _placement_world(case: str):
+    """(cand, H, W, radius) of a placement case: fuse_world's crowded
+    candidates (some pixels take more than K), with NaN variances, none
+    valid, none at all, or on a (0, 0) grid."""
+    H, W = (0, 0) if case == "empty-grid" else (24, 20)
+    _, cand = chip_smoke.fuse_world(max(H, 24), max(W, 20), 400, seed=12,
+                                    device="cpu")
+    radius = 1 if case in ("radius-1", "nan-variance") else 0
+    if case == "nan-variance":
+        cand.variance[::7] = float("nan")
+    if case == "none-valid":
+        cand.valid[:] = False
+    if case in ("no-candidates", "empty-grid"):
+        cand = chip_smoke._tree(cand, lambda a: a[:0])
+    return cand, H, W, radius
+
+
+@pytest.mark.parametrize("case", [
+    "radius-0", "radius-1", "nan-variance", "none-valid", "no-candidates",
+    "empty-grid"])
+def test_run_bounds_place_the_slots_of_assign_slots(case):
+    """The first min(run, K) entries of a pixel's run are its slots 0..K-1
+    of _assign_slots, and the runs' entries past K its num_dropped."""
+    K = 3
+    cand, H, W, radius = _placement_world(case)
+    hw = H * W
+    tiled, pix = tfu._splat(cand, H, W, radius)
+    slot, want_dropped = tfu._assign_slots(pix, tiled.valid,
+                                           tiled.variance, hw, K)
+    # the twin's (K, hw) plane of tiled ids: slot = rank * hw + pixel
+    want = torch.full((K * hw + 1,), -1, dtype=torch.int64)
+    want[slot] = torch.arange(pix.shape[0])
+    want = want[:-1].view(K, hw)
+    pix2, inb = tfu._splat_pixels(cand, H, W, radius)
+    order, pix_sorted = tfu._sort_slots(pix2, cand.valid[:, None] & inb,
+                                        cand.variance[:, None], hw)
+    start, end, dropped = tfu.run_bounds(pix_sorted, hw, K)
+    got = torch.full((K, hw), -1, dtype=torch.int64)
+    for k in range(K):
+        has = end - start > k
+        got[k, has] = order[start[has] + k]
+    assert torch.equal(got, want)
+    assert int(dropped) == int(want_dropped)
+    if case in ("radius-0", "radius-1", "nan-variance"):
+        assert int(dropped) > 0 and bool((want >= 0).any())
+    else:
+        assert int(dropped) == 0 and not bool((want >= 0).any())
+    # every run entry is a tile of a valid candidate on that run's pixel
+    n = int((pix_sorted < hw).sum())
+    assert torch.equal(pix2.reshape(-1)[order[:n]], pix_sorted[:n])
+    assert bool((cand.valid[:, None] & inb).reshape(-1)[order[:n]].all())
+
+
+@pytest.mark.parametrize("case", [
+    "radius-0", "radius-1", "nan-variance", "none-valid", "no-candidates",
+    "empty-grid"])
+def test_byte_bound_reads_each_taken_candidate_once(case):
+    """chip_smoke.k7_bytes, K7's byte bound, counts what the twin's slot
+    plane takes: each pixel's 22 grid words, the sorted ids inside the
+    grid, an order entry a kept slot and 8 words a distinct kept
+    candidate (its tiles share them), the camera and the two counts."""
+    K = 3
+    cand, H, W, radius = _placement_world(case)
+    hw = H * W
+    tiled, pix = tfu._splat(cand, H, W, radius)
+    slot, _ = tfu._assign_slots(pix, tiled.valid, tiled.variance, hw, K)
+    kept = torch.nonzero(slot < hw * K).reshape(-1)
+    pix2, inb = tfu._splat_pixels(cand, H, W, radius)
+    kt = pix2.shape[1]
+    order, pix_sorted = tfu._sort_slots(pix2, cand.valid[:, None] & inb,
+                                        cand.variance[:, None], hw)
+    start, _, _ = tfu.run_bounds(pix_sorted, hw, K)
+    distinct = len({int(i) // kt for i in kept})
+    want = (hw * 22 * 4 + int((pix_sorted < hw).sum()) * 8
+            + kept.numel() * 8 + distinct * 32 + 12 * 4 + 2 * 8)
+    assert chip_smoke.k7_bytes(order, pix_sorted, start, hw, K, kt) == want
+    if case in ("radius-0", "radius-1", "nan-variance"):
+        assert 0 < distinct < kept.numel()
 
 
 # --- the dispatch rule and the wrapper's checks ---------------------------
@@ -217,7 +316,7 @@ def test_cpu_grids_take_the_twin(dtype, twin_only):
     assert out.inv_depth.dtype == dtype and int(nf) >= 0
 
 
-def _wrapper_args(H=6, W=7, M=5, K=3):
+def _wrapper_args(H=6, W=7, M=5, Kt=4):
     grid = dict(invD=torch.zeros(H, W), var=torch.ones(H, W),
                 s2=torch.ones(H, W), nu=torch.ones(H, W),
                 res=torch.zeros(H, W),
@@ -226,8 +325,8 @@ def _wrapper_args(H=6, W=7, M=5, K=3):
     cand = dict(invD=torch.zeros(M), var=torch.ones(M), s2=torch.ones(M),
                 nu=torch.ones(M), res=torch.zeros(M),
                 age=torch.zeros(M, dtype=torch.int32), x=torch.zeros(M, 2))
-    return grid, cand, torch.full((K, H, W), -1, dtype=torch.int32), \
-        torch.zeros(12)
+    order = torch.arange(M * Kt)
+    return grid, cand, order, torch.full((M * Kt,), H * W), torch.zeros(12)
 
 
 @pytest.mark.parametrize("where, name, bad, exc", [
@@ -236,28 +335,32 @@ def _wrapper_args(H=6, W=7, M=5, K=3):
     ("grid", "p", torch.zeros(6, 7, 2), ValueError),
     ("cand", "x", torch.zeros(5, 3), ValueError),
     ("cand", "nu", torch.ones(5, device="meta"), ValueError),
-    ("slots", None, torch.zeros(3, 6, 7, dtype=torch.int64), TypeError),
+    ("order", None, torch.arange(20, dtype=torch.int32), TypeError),
     ("cam", None, torch.zeros(12, dtype=torch.float64), TypeError),
+    ("runs", None, torch.arange(18), ValueError),
 ], ids=["var-f64", "age-float", "p-shape", "cand-x-shape", "device",
-        "slots-int64", "cam-f64"])
+        "order-int32", "cam-f64", "order-part-tiles"])
 def test_wrapper_checks_raise(where, name, bad, exc):
-    grid, cand, slots, cam = _wrapper_args()
-    fuse_op.check_inputs(grid, cand, slots, cam)
+    grid, cand, order, pix_sorted, cam = _wrapper_args()
+    fuse_op.check_inputs(grid, cand, order, pix_sorted, cam)
     if where == "grid":
         grid[name] = bad
     elif where == "cand":
         cand[name] = bad
-    elif where == "slots":
-        slots = bad
+    elif where == "order":
+        order = bad
+    elif where == "runs":
+        order, pix_sorted = bad, torch.full((18,), 42)
     else:
         cam = bad
     with pytest.raises(exc):
-        fuse_op.check_inputs(grid, cand, slots, cam)
+        fuse_op.check_inputs(grid, cand, order, pix_sorted, cam)
 
 
 def test_wrapper_refuses_cpu_tensors():
-    grid, cand, slots, cam = _wrapper_args()
+    grid, cand, order, pix_sorted, cam = _wrapper_args()
     before = fuse_op.KERNEL.launches
     with pytest.raises(ValueError, match="CUDA"):
-        fuse_op.fold_slots(grid, cand, slots, cam, tdist=True)
+        fuse_op.fuse_runs(grid, cand, order, pix_sorted, cam, K=8,
+                          tdist=True)
     assert fuse_op.KERNEL.launches == before

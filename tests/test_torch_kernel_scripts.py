@@ -1,10 +1,10 @@
-"""The K4 / K5 measurement scripts on a machine without a card.
+"""The kernel measurement scripts on a machine without a card.
 
 - ``scripts/torch_k4_stamps.py`` instruments a copy of
   ``esvo_tpu_torch/csrc/track.cu`` by anchor lines: every anchor is in
   the source once, and the copy carries a stamp at each phase boundary
   of a round, inside the serial algebra, and at the prologue.
-- Both scripts need a card: without one they exit non-zero before
+- The scripts need a card: without one they exit non-zero before
   building or importing anything of the port's kernels.
 """
 import sys
