@@ -18,6 +18,8 @@ from pathlib import Path
 
 import torch
 
+from esvo_tpu_torch.utils.profiling import count, span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "esvo_tpu_torch"
 # No --use_fast_math: 1/den, exp and floor stay IEEE.
@@ -48,23 +50,27 @@ def build(sources) -> dict[str, Path]:
     return {source: library path}. Raises with nvcc's output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {s: _lib_path(s) for s in sources}
-    procs = {}
-    for s, out in paths.items():
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / s)]
-        procs[s] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    tmp, out)
+    missing = [s for s, out in paths.items() if not out.exists()]
+    if not missing:
+        return paths
     failed = []
-    for s, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        BUILD_LOG[s] = log
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed on {s}:\n{log}")
-            continue
-        os.replace(tmp, out)
+    with span("kernel.build", sources=missing):
+        procs = {}
+        for s in missing:
+            out = paths[s]
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / s)]
+            procs[s] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT,
+                                         text=True), tmp, out)
+        for s, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            BUILD_LOG[s] = log
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {s}:\n{log}")
+                continue
+            os.replace(tmp, out)
+        count("kernel.builds", len(missing))
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths

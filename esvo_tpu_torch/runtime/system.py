@@ -59,6 +59,7 @@ from esvo_tpu_torch.runtime.config import SystemConfig
 from esvo_tpu_torch.surface import time_surface as tsf
 from esvo_tpu_torch.tracking import registration as reg
 from esvo_tpu_torch.utils.precision import highest_precision
+from esvo_tpu_torch.utils.profiling import count, span
 
 _CAMERA_TENSORS = ("K", "D", "R", "P")
 _CAMERA_MAPS = ("lut", "inv_map", "mask")
@@ -586,14 +587,16 @@ class EsvoSystem:
     def _accumulate_global_map(self, pts_world, occ, leaf: float = 0.01):
         """Voxel-downsampled global cloud: one point per occupied voxel,
         newest wins (host side)."""
-        p = pts_world.detach().cpu().numpy().reshape(-1, 3)
-        p = p[occ.detach().cpu().numpy().reshape(-1)]
-        if len(p) == 0:
-            return
-        keys = np.floor(p / leaf).astype(np.int64)
-        k = ((keys[:, 0] + (1 << 20)) << 42) \
-            + ((keys[:, 1] + (1 << 20)) << 21) + (keys[:, 2] + (1 << 20))
-        self._global_voxels.update(zip(k.tolist(), p))
+        with span("tick.global_map"):
+            p = pts_world.detach().cpu().numpy().reshape(-1, 3)
+            p = p[occ.detach().cpu().numpy().reshape(-1)]
+            count("host_reads", 2)
+            if len(p) == 0:
+                return
+            keys = np.floor(p / leaf).astype(np.int64)
+            k = ((keys[:, 0] + (1 << 20)) << 42) \
+                + ((keys[:, 1] + (1 << 20)) << 21) + (keys[:, 2] + (1 << 20))
+            self._global_voxels.update(zip(k.tolist(), p))
 
     def global_map(self) -> np.ndarray:
         """(M, 3) accumulated voxel-downsampled world point cloud."""
@@ -611,92 +614,107 @@ class EsvoSystem:
         (known poses; tracking bypassed). do_mapping: force a mapping
         cycle on / off; None schedules it from mapping_rate_hz. Returns a
         dict of per-tick outputs."""
-        # timestamp-inconsistency watchdog
-        if self.last_tick_time is not None:
-            dt = t_sync - self.last_tick_time
-            if dt < 0 or dt >= 0.5:
-                self.reset()
-        self.last_tick_time = t_sync
-        if do_mapping is None:
-            period = 1.0 / self.cfg.mapping.mapping_rate_hz
-            do_mapping = (self.last_mapping_time is None
-                          or t_sync - self.last_mapping_time
-                          >= period - 1e-9)
+        with span("tick", t=t_sync, mapped=False) as root:
+            # timestamp-inconsistency watchdog
+            if self.last_tick_time is not None:
+                dt = t_sync - self.last_tick_time
+                if dt < 0 or dt >= 0.5:
+                    self.reset()
+            self.last_tick_time = t_sync
+            if do_mapping is None:
+                period = 1.0 / self.cfg.mapping.mapping_rate_hz
+                do_mapping = (self.last_mapping_time is None
+                              or t_sync - self.last_mapping_time
+                              >= period - 1e-9)
 
-        out = {"t": t_sync, "status": self.status.value}
-        # a cycle parked by a roll is published before this tick uses it
-        fin = self._finalize_pending_mapping()
-        if fin:
-            out.update(fin)
-        self.ts_state_left, self.ts_state_right, ts_l, ts_r = \
-            self.cycle.render_tick(self.ts_state_left, self.ts_state_right,
-                                   self._event_batch(ev_left),
-                                   self._event_batch(ev_right), t_sync)
-        ts_l = ts_l.to(self.dtype)
-        ts_r = ts_r.to(self.dtype)
-        out["ts_left"] = ts_l
-        out["ts_right"] = ts_r
-        self.events_since_last_obs = int(np.sum(ev_left["valid"]))
-        if self.events_since_last_obs < self.cfg.tracker.min_num_events:
-            self.stats["low_event_ticks"] += 1
-            out["low_events"] = True
-
-        ref = self._current_ref_map()
-        if gt_pose is not None:
-            self.record_pose(t_sync, gt_pose)
-        elif self.status == SystemStatus.WORKING and ref is not None:
-            pts, ok = self.select_ref_points(ref[0], ref[1])
-            T_est, rms = self.track(ts_l, self._tensor(self.T_world_frame),
-                                    self._tensor(self.T_world_cur), pts, ok)
-            # one transfer: the pose, the per-round rms, the points used
-            host = torch.cat([T_est.reshape(-1), rms,
-                              torch.sum(ok).to(rms.dtype)[None]]).cpu()
-            host = host.double().numpy()
-            self.record_pose(t_sync, host[:16].reshape(4, 4))
-            out["tracking_rms"] = host[16:-1]
-            out["lm_stats"] = {"n_points": int(host[-1]),
-                               "n_iter": self.cfg.tracker.max_iteration,
-                               "rms": float(host[-2])}
-
-        self.traj_times.append(t_sync)
-        self.traj_poses.append(self.T_world_cur.copy())
-        if not do_mapping:
-            return out
-
-        T_wf = self.T_world_cur.copy()
-        if self.status == SystemStatus.INITIALIZATION:
-            self._sgm_bootstrap(t_sync, ts_l, ts_r, ev_left, T_wf, out)
-        elif self._dispatch_mapping(t_sync, ts_l, ts_r, ev_left, T_wf,
-                                    gt_mode=gt_pose is not None, out=out):
+            out = {"t": t_sync, "status": self.status.value}
+            # a cycle parked by a roll is published before this tick uses
+            # it
             fin = self._finalize_pending_mapping()
             if fin:
                 out.update(fin)
-        out["map_points"] = self.stats["map_points"]
-        if self.emit_debug_maps:
-            out["maps"] = self.render_debug_maps()
-        return out
+            with span("tick.render"):
+                self.ts_state_left, self.ts_state_right, ts_l, ts_r = \
+                    self.cycle.render_tick(
+                        self.ts_state_left, self.ts_state_right,
+                        self._event_batch(ev_left),
+                        self._event_batch(ev_right), t_sync)
+                ts_l = ts_l.to(self.dtype)
+                ts_r = ts_r.to(self.dtype)
+            out["ts_left"] = ts_l
+            out["ts_right"] = ts_r
+            self.events_since_last_obs = int(np.sum(ev_left["valid"]))
+            if self.events_since_last_obs < self.cfg.tracker.min_num_events:
+                self.stats["low_event_ticks"] += 1
+                out["low_events"] = True
+
+            ref = self._current_ref_map()
+            if gt_pose is not None:
+                self.record_pose(t_sync, gt_pose)
+            elif self.status == SystemStatus.WORKING and ref is not None:
+                with span("tick.track"):
+                    pts, ok = self.select_ref_points(ref[0], ref[1])
+                    T_est, rms = self.track(
+                        ts_l, self._tensor(self.T_world_frame),
+                        self._tensor(self.T_world_cur), pts, ok)
+                    # one transfer: the pose, the per-round rms, the
+                    # points used
+                    with span("tick.track.read"):
+                        host = torch.cat([T_est.reshape(-1), rms,
+                                          torch.sum(ok).to(rms.dtype)[None]
+                                          ]).cpu()
+                    count("host_reads")
+                    host = host.double().numpy()
+                    self.record_pose(t_sync, host[:16].reshape(4, 4))
+                out["tracking_rms"] = host[16:-1]
+                out["lm_stats"] = {"n_points": int(host[-1]),
+                                   "n_iter": self.cfg.tracker.max_iteration,
+                                   "rms": float(host[-2])}
+
+            self.traj_times.append(t_sync)
+            self.traj_poses.append(self.T_world_cur.copy())
+            if not do_mapping:
+                return out
+
+            T_wf = self.T_world_cur.copy()
+            if self.status == SystemStatus.INITIALIZATION:
+                self._sgm_bootstrap(t_sync, ts_l, ts_r, ev_left, T_wf, out)
+            elif self._dispatch_mapping(t_sync, ts_l, ts_r, ev_left, T_wf,
+                                        gt_mode=gt_pose is not None,
+                                        out=out):
+                root.set(mapped=True)
+                fin = self._finalize_pending_mapping()
+                if fin:
+                    out.update(fin)
+            out["map_points"] = self.stats["map_points"]
+            if self.emit_debug_maps:
+                out["maps"] = self.render_debug_maps()
+            return out
 
     def _sgm_bootstrap(self, t_sync, ts_l, ts_r, ev_left, T_wf, out):
         """SGM bootstrap cycle, synchronous: its point count decides the
         state machine."""
-        dev = self.device
-        est, n = self.cycle.sgm_estimate(
-            ts_l, ts_r, torch.as_tensor(ev_left["x"], device=dev),
-            torch.as_tensor(ev_left["y"], device=dev),
-            torch.as_tensor(ev_left["valid"], device=dev),
-            self._tensor(T_wf))
-        n = int(n)
-        out["sgm_points"] = n
-        if n >= self.cfg.mapping.init_sgm_num_threshold:
-            self._push_history(est)
-            self.T_world_frame = T_wf
-            self.grid, self._map_pts, self._map_ok = self.cycle.seed_frame(
-                self.history, self._tensor(T_wf))
-            self.stats["map_points"] = int(torch.sum(self._map_ok))
-            self._push_ref_map(self._map_pts, self._map_ok,
-                               self.stats["map_points"])
-            self.status = SystemStatus.WORKING
-            self.last_mapping_time = t_sync
+        with span("tick.bootstrap"):
+            dev = self.device
+            est, n = self.cycle.sgm_estimate(
+                ts_l, ts_r, torch.as_tensor(ev_left["x"], device=dev),
+                torch.as_tensor(ev_left["y"], device=dev),
+                torch.as_tensor(ev_left["valid"], device=dev),
+                self._tensor(T_wf))
+            n = int(n)
+            count("host_reads")
+            out["sgm_points"] = n
+            if n >= self.cfg.mapping.init_sgm_num_threshold:
+                self._push_history(est)
+                self.T_world_frame = T_wf
+                self.grid, self._map_pts, self._map_ok = self.cycle.seed_frame(
+                    self.history, self._tensor(T_wf))
+                self.stats["map_points"] = int(torch.sum(self._map_ok))
+                count("host_reads")
+                self._push_ref_map(self._map_pts, self._map_ok,
+                                   self.stats["map_points"])
+                self.status = SystemStatus.WORKING
+                self.last_mapping_time = t_sync
 
     def _dispatch_mapping(self, t_sync, ts_l, ts_r, ev_left, T_wf,
                           gt_mode: bool, out: dict) -> bool:
@@ -704,32 +722,33 @@ class EsvoSystem:
         for it: its handles are parked in `_pending_mapping` for
         `_finalize_pending_mapping`. Returns False when the pose table no
         longer covers the frame's oldest event (the cycle is skipped)."""
-        ev_t = np.asarray(ev_left["t"])
-        ev_ok = np.asarray(ev_left["valid"])
-        if ev_ok.any() and len(self.pose_times) > 1:
-            oldest_needed = float(ev_t[ev_ok].min())
-            oldest_avail = self.pose_times[
-                max(len(self.pose_times) - self.pose_table_size, 0)]
-            if oldest_needed < oldest_avail - 1e-9:
-                self.stats["pose_miss_skips"] += 1
-                out["pose_miss_skip"] = True
-                return False
-        dev = self.device
-        pt_t, pt_T = self._pose_table()
-        T_wf_dev = self._tensor(T_wf)
-        est, n, bm_stats = self.cycle.mapping_estimate(
-            ts_l, ts_r, torch.as_tensor(ev_left["x"], device=dev),
-            torch.as_tensor(ev_left["y"], device=dev), self._tensor(ev_t),
-            torch.as_tensor(ev_ok, device=dev), pt_t, pt_T, T_wf_dev)
-        self._push_history(est)
-        self.T_world_frame = T_wf
-        self.grid, self._map_pts, self._map_ok, nf, nd = \
-            self.cycle.rebuild_frame(self.history, T_wf_dev)
-        self.last_mapping_time = t_sync
-        self._pending_mapping = {
-            "n": n, "bm_stats": bm_stats, "nf": nf, "nd": nd,
-            "pts": self._map_pts, "ok": self._map_ok, "gt_mode": gt_mode}
-        return True
+        with span("tick.map"):
+            ev_t = np.asarray(ev_left["t"])
+            ev_ok = np.asarray(ev_left["valid"])
+            if ev_ok.any() and len(self.pose_times) > 1:
+                oldest_needed = float(ev_t[ev_ok].min())
+                oldest_avail = self.pose_times[
+                    max(len(self.pose_times) - self.pose_table_size, 0)]
+                if oldest_needed < oldest_avail - 1e-9:
+                    self.stats["pose_miss_skips"] += 1
+                    out["pose_miss_skip"] = True
+                    return False
+            dev = self.device
+            pt_t, pt_T = self._pose_table()
+            T_wf_dev = self._tensor(T_wf)
+            est, n, bm_stats = self.cycle.mapping_estimate(
+                ts_l, ts_r, torch.as_tensor(ev_left["x"], device=dev),
+                torch.as_tensor(ev_left["y"], device=dev), self._tensor(ev_t),
+                torch.as_tensor(ev_ok, device=dev), pt_t, pt_T, T_wf_dev)
+            self._push_history(est)
+            self.T_world_frame = T_wf
+            self.grid, self._map_pts, self._map_ok, nf, nd = \
+                self.cycle.rebuild_frame(self.history, T_wf_dev)
+            self.last_mapping_time = t_sync
+            self._pending_mapping = {
+                "n": n, "bm_stats": bm_stats, "nf": nf, "nd": nd,
+                "pts": self._map_pts, "ok": self._map_ok, "gt_mode": gt_mode}
+            return True
 
     def _finalize_pending_mapping(self) -> dict | None:
         """Bring the parked cycle's counters to the host, publish its map
@@ -738,20 +757,23 @@ class EsvoSystem:
         if p is None:
             return None
         self._pending_mapping = None
-        out = {"map_estimates": int(p["n"])}
-        bm_stats = {k: int(v) for k, v in p["bm_stats"].items()}
-        out["bm_stats"] = bm_stats
-        self.stats["bm"] = {k: self.stats["bm"].get(k, 0) + v
-                            for k, v in bm_stats.items()}
-        self.stats["fusions"] += int(p["nf"])
-        self.stats["dropped"] += int(p["nd"])
-        self.stats["map_points"] = int(torch.sum(p["ok"]))
-        self._push_ref_map(p["pts"], p["ok"], self.stats["map_points"])
-        self._accumulate_global_map(p["pts"], p["ok"])
-        # degrade only when no ring map can support registration
-        if not p["gt_mode"] and self._current_ref_map() is None:
-            self._degrade()
-        out["map_points"] = self.stats["map_points"]
+        with span("tick.finalize"):
+            out = {"map_estimates": int(p["n"])}
+            bm_stats = {k: int(v) for k, v in p["bm_stats"].items()}
+            out["bm_stats"] = bm_stats
+            self.stats["bm"] = {k: self.stats["bm"].get(k, 0) + v
+                                for k, v in bm_stats.items()}
+            self.stats["fusions"] += int(p["nf"])
+            self.stats["dropped"] += int(p["nd"])
+            self.stats["map_points"] = int(torch.sum(p["ok"]))
+            # n, each block-matching counter, nf, nd and the point count
+            count("host_reads", 4 + len(bm_stats))
+            self._push_ref_map(p["pts"], p["ok"], self.stats["map_points"])
+            self._accumulate_global_map(p["pts"], p["ok"])
+            # degrade only when no ring map can support registration
+            if not p["gt_mode"] and self._current_ref_map() is None:
+                self._degrade()
+            out["map_points"] = self.stats["map_points"]
         return out
 
     def _degrade(self):
@@ -843,6 +865,7 @@ class EsvoSystem:
             rms = torch.stack(rms_last)
             host = torch.cat([torch.stack(poses).reshape(-1), rms,
                               torch.sum(ok).to(rms.dtype)[None]]).cpu()
+            count("host_reads")
             host = host.double().numpy()
             poses_np = host[:16 * K].reshape(K, 4, 4)
             for i, t in enumerate(t_syncs):

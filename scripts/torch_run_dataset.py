@@ -10,8 +10,10 @@ runner does), writes the TUM trajectory and reports ATE / RPE when
 ground truth is present. --ba adds the sliding-window bundle adjustment
 (runtime/backend_loop.py), --loop-closure the loop-closure + pose-graph
 backend (runtime/pose_graph_loop.py), --live-view the browser dashboard
-(utils/live_view.py). The system runs on the CUDA card; a Python caller
-passes ``main(argv, device="cpu")`` for the CPU.
+(utils/live_view.py), --trace DIR the program's spans and counters
+(utils/profiling.py: DIR/spans.json, a Chrome trace, and DIR/summary.txt).
+The system runs on the CUDA card; a Python caller passes
+``main(argv, device="cpu")`` for the CPU.
 
 --devices N (> 1) runs N SPMD ranks (parallel/sharding.py run_ranks):
 every rank reads the same inputs and runs EsvoSystem(mesh=...) with the
@@ -66,6 +68,7 @@ from esvo_tpu_torch.runtime.resident import (  # noqa: E402
     ResidentLoop, TimestampDiscontinuity)
 from esvo_tpu_torch.runtime.system import (  # noqa: E402
     EsvoSystem, SystemStatus)
+from esvo_tpu_torch.utils import profiling  # noqa: E402
 from esvo_tpu_torch.utils.live_view import LiveViewer  # noqa: E402
 
 
@@ -172,6 +175,11 @@ def parse_args(argv=None, device=None):
     ap.add_argument("--ba-window", type=int, default=6)
     ap.add_argument("--ba-every", type=int, default=2,
                     help="mapping cycles per BA keyframe")
+    ap.add_argument("--trace", metavar="DIR", default=None,
+                    help="record the program's spans and counters "
+                         "(utils/profiling.py) and write them at exit: "
+                         "DIR/spans.json (a Chrome trace; open it in "
+                         "Perfetto) and DIR/summary.txt")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
     if args.devices < 1:
@@ -263,16 +271,34 @@ def main(argv=None, device=None):
     """Run the replay; returns the result dict (ticks, wall_s, stats, and
     ate_rmse_m / rpe_* for a closed run with ground truth). `device`:
     where the system runs, ``cuda`` unless given. With --devices N > 1
-    it starts N ranks and returns rank 0's result."""
+    it starts N ranks and returns rank 0's result. With --trace DIR the
+    tracer records the run (each rank its own; rank 0 writes DIR), and
+    DIR is written even when the run fails."""
     args = parse_args(argv, device)
-    mesh = None
     if args.devices > 1:
         if args.resident:
             raise SystemExit("--resident requires --roll > 1, --mode closed "
                              "and a single device")
         if not dist.is_initialized():
             return run_ranks(main, args.devices, argv, device=device)
-        mesh = make_mesh(args.devices)
+    if args.trace is None:
+        return replay(args, device)
+    profiling.enable()
+    try:
+        return replay(args, device)
+    finally:
+        profiling.disable()
+        records = profiling.take()
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            summary = profiling.export(records, args.trace)
+            if not args.quiet:
+                print(f"[torch_run_dataset] spans -> {args.trace}\n"
+                      f"{summary}")
+
+
+def replay(args, device):
+    """The replay of `args` (main's, after the ranks have started)."""
+    mesh = make_mesh(args.devices) if args.devices > 1 else None
     # rank 0 alone writes files, prints and serves the live view
     lead = mesh is None or dist.get_rank() == 0
     live = args.live_view is not None

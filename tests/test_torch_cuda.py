@@ -19,8 +19,9 @@ it.
 
 The resident loop: one roll captured as a CUDA graph and replayed twice
 from a restored state, each replay against the roll run eagerly (1e-4 m,
-1e-4 rad, map points and accept flags exact), and a capture error that
-raises instead of running the roll eagerly.
+1e-4 rad, map points and accept flags exact), a capture error that
+raises instead of running the roll eagerly, and the tracer's spans of a
+capture and of each replay (none from inside a capture).
 
 The backend: the loop-closure descriptor, the ICP verification, bundle
 adjustment and the pose graph on the card against the CPU port, BA, the
@@ -608,6 +609,41 @@ def test_resident_capture_error_raises(smoke, resident):
     assert all(torch.equal(a, b) for a, b in zip(bad.state.tensors(),
                                                  snap.tensors()))
     bad.finish()
+
+
+def test_resident_spans_on_the_card(smoke, resident):
+    """With the tracer on, a new loop's first step records its capture
+    (``resident.capture`` under ``resident.step``, ``graph.captures``)
+    and every replay a ``resident.replay`` device span with its time; a
+    device span opened while a graph captures records nothing."""
+    from esvo_tpu_torch.utils import profiling as prof
+    system, loop, roll = resident
+    fresh = smoke.ResidentLoop(system, smoke.ROLL, 1)
+    fresh.start()
+    prof.enable()
+    try:
+        for _ in range(2):
+            fresh.stage(*roll)
+            fresh.step()
+        graph, x = torch.cuda.CUDAGraph(), torch.zeros(4, device="cuda")
+        with torch.cuda.graph(graph):
+            with prof.device_span("inside.capture"):
+                x.add_(1)
+        got = prof.take()
+    finally:
+        prof.disable()
+        prof.take()
+    fresh.finish()
+    spans = got["spans"]
+    replays = [s for s in spans if s["name"] == "resident.replay"]
+    assert len(replays) == 2
+    assert all(s["parent"] == "resident.step" and s["device_ms"] > 0
+               for s in replays)
+    captures = [s for s in spans if s["name"] == "resident.capture"]
+    assert len(captures) == 1 and captures[0]["parent"] == "resident.step"
+    assert not any(s["name"] == "inside.capture" for s in spans)
+    assert got["counters"] == {"graph.captures": 1, "resident.replays": 2,
+                               "resident.ticks": 2 * smoke.ROLL}
 
 
 # -- the backend and the event simulator (chip_smoke.py's cases) ------------

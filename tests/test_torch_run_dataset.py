@@ -1,12 +1,13 @@
 """scripts/torch_run_dataset.py on tests/test_run_dataset.py's fixture (an
 rpg text directory with calibration and reference-format YAMLs), run on
 the CPU through ``main(argv, device="cpu")``: the closed loop on the host
-path and through the resident loop, checkpoint and resume, --devices 2
-(two gloo ranks; rank 0 writes the trajectory), and --devices beyond the
-visible CUDA cards, which stops at argument time. The backend and dashboard flags run in
-tests/test_torch_run_dataset_backends.py. The bars are those of
-tests/test_run_dataset.py's cases.
+path and through the resident loop, --trace, checkpoint and resume,
+--devices 2 (two gloo ranks; rank 0 writes the trajectory), and --devices
+beyond the visible CUDA cards, which stops at argument time. The
+backend and dashboard flags run in tests/test_torch_run_dataset_backends.py.
+The bars are those of tests/test_run_dataset.py's cases.
 """
+import json
 import os
 import sys
 
@@ -19,6 +20,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 
 import torch_run_dataset  # noqa: E402
 from esvo_tpu_torch.eval.trajectory import load_tum  # noqa: E402
+from esvo_tpu_torch.utils import profiling  # noqa: E402
 from test_run_dataset import dataset_dir  # noqa: E402,F401
 
 
@@ -76,6 +78,28 @@ def test_resident_loop(dataset_dir, tmp_path):  # noqa: F811
     assert len(dumps) >= 3
     rows = np.loadtxt(os.path.join(dm_dir, dumps[-1]))
     assert rows.ndim == 2 and rows.shape[0] > 100
+
+
+def test_trace_writes_spans(dataset_dir, tmp_path):  # noqa: F811
+    """--trace DIR: the host path's ticks (bootstrap included) and the
+    resident dispatches as spans in DIR/spans.json, the summary beside
+    it, and the tracer off again after the run."""
+    trace = tmp_path / "trace"
+    run(base_args(dataset_dir) + [
+        "--duration", "0.3", "--roll", "5", "--resident", "2",
+        "--trace", str(trace), "--out", str(tmp_path / "traj.txt")])
+    assert not profiling.enabled()
+    with open(trace / "spans.json") as f:
+        events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events}
+    assert {"tick.bootstrap", "tick.map", "tick.finalize", "resident.run",
+            "resident.stage", "resident.step", "resident.sync",
+            "resident.sync.read"} <= names
+    runs = [e for e in events if e["name"] == "resident.run"]
+    assert runs and all(e["args"]["counts"]["resident.ticks"] == 10
+                        for e in runs)
+    summary = (trace / "summary.txt").read_text()
+    assert "resident.run:" in summary and "host_reads:" in summary
 
 
 def test_checkpoint_resume(dataset_dir, tmp_path):  # noqa: F811
