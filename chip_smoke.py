@@ -153,6 +153,7 @@ from esvo_tpu_torch.runtime.resident import ResidentLoop, unpack
 from esvo_tpu_torch.runtime.system import EsvoSystem, MappingCycle
 from esvo_tpu_torch.surface import time_surface as tsf
 from esvo_tpu_torch.tracking import registration as reg
+from esvo_tpu_torch.utils import profiling as tracer
 from esvo_tpu_torch.utils.precision import highest_precision
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
@@ -2007,15 +2008,13 @@ def mvstereo_phase(rigs, cpu_rig, cfg: SystemConfig, stream, card) -> dict:
     scene, ticks, frames = stream
     launches = {}
     for mode in mv.MVStereoMode:
-        for info in KERNELS.values():
-            info["module"].KERNEL.launches = 0
+        reset_launches()
         torch.cuda.reset_peak_memory_stats()
         calls = []
         system, cycle_ms = run_mvstereo(rigs["rpg"], cfg, scene, ticks,
                                         frames, mode, calls=calls)
         peak = torch.cuda.max_memory_allocated()
-        n = {k: info["module"].KERNEL.launches
-             for k, info in KERNELS.items()}
+        n = launch_counts()
         launches[mode.name.lower()] = n
         rec = dict(mvstereo=mode.name.lower(), mode=int(mode), card=card,
                    ticks=MV_TICKS, mapping_cycles=len(cycle_ms),
@@ -2166,13 +2165,11 @@ def run_dataset_phase(rig: StereoRig, card, device="cuda") -> dict:
             "mvstereo": ["--mode", "mvstereo"]}
     launches = {}
     for name, extra in runs.items():
-        for info in KERNELS.values():
-            info["module"].KERNEL.launches = 0
+        reset_launches()
         res = runner.main(base + extra
                           + ["--out", str(DATASET_DIR / f"{name}.txt")],
                           device=device)
-        launches[name] = {k: info["module"].KERNEL.launches
-                          for k, info in KERNELS.items()}
+        launches[name] = launch_counts()
         rec = dict(run_dataset=name, card=card, argv=extra,
                    ticks=res["ticks"], wall_s=res["wall_s"],
                    ticks_per_s=res["ticks"] / res["wall_s"],
@@ -2200,11 +2197,9 @@ def demo_phase(card, device="cuda") -> dict:
         / "torch_run_synthetic.py")
     demo = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(demo)
-    for info in KERNELS.values():
-        info["module"].KERNEL.launches = 0
+    reset_launches()
     res = demo.main(["--device", device])
-    launches = {k: info["module"].KERNEL.launches
-                for k, info in KERNELS.items()}
+    launches = launch_counts()
     rec = dict(demo="examples/torch_run_synthetic.py", card=card,
                ticks_per_s=res["ticks"] / res["wall_s"], launches=launches,
                **res)
@@ -2633,8 +2628,7 @@ def _backend_run(name, rig, scene, ticks, frames, cfg, card,
         verified.append(dict(accepted=res[0], **res[4]))
         return res
     lc.verify_loop_icp = record_icp
-    for info in KERNELS.values():
-        info["module"].KERNEL.launches = 0
+    reset_launches()
     loop, k, n, disp = None, 0, len(ticks), ROLL * RESIDENT_R
     resident = name == "resident"
     # the run's wall split: a resident run's rolls before its first
@@ -2686,8 +2680,7 @@ def _backend_run(name, rig, scene, ticks, frames, cfg, card,
     finally:
         lc.verify_loop_icp = timed_icp
         ms = {key: w.close() for key, w in watches.items()}
-    launches = {key: info["module"].KERNEL.launches
-                for key, info in KERNELS.items()}
+    launches = launch_counts()
     t_est, T_est = system.trajectory()
     gt = np.stack([interpolate_gt_pose(scene, t) for t in t_est])
     pt, pT = pgl.optimized_trajectory()
@@ -2713,7 +2706,8 @@ def _backend_run(name, rig, scene, ticks, frames, cfg, card,
                    if len(pt) > 2 else None),
                finite=finite, launches=launches,
                launches_note=("counted by the kernel wrappers: a resident "
-                              "run's graph replays are not among them")
+                              "run's ResidentLoop replays are not among "
+                              "them")
                if resident else None)
     log(rec)
     if not (rec["status"] == "WORKING" and finite
@@ -2753,13 +2747,11 @@ def sim_campaign_phase(card, device="cuda") -> dict:
     argv = ["--out", str(out), "--duration", str(CAMPAIGN_RUN["duration"]),
             "--laps", str(CAMPAIGN_RUN["laps"]), "--quick", "--resident", "2",
             "--ba", "--regen"]
-    for info in KERNELS.values():
-        info["module"].KERNEL.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     res = campaign.main(argv, device=device)
     wall = time.perf_counter() - t0
-    launches = {k: info["module"].KERNEL.launches
-                for k, info in KERNELS.items()}
+    launches = launch_counts()
     _, T = load_tum(str(out / "trajectory.txt"))
     rec = dict(sim_campaign=argv, card=card, phase_wall_s=wall,
                finite=bool(np.isfinite(T).all()),
@@ -2974,13 +2966,11 @@ def shard_rank(worlds: dict, rolls, device) -> dict:
     run made (counted from 0); then, on a one-rank mesh, ms a sharded
     call against the unsharded one in this same process."""
     mesh = ps.make_mesh()
-    for info in KERNELS.values():
-        info["module"].KERNEL.launches = 0
+    reset_launches()
     cases = shard_cases(worlds, device, mesh)
     loop = shard_loop(rolls, device, mesh)
     _sync(device)
-    launches = {k: info["module"].KERNEL.launches
-                for k, info in KERNELS.items()}
+    launches = launch_counts()
     ms = {}
     if mesh.size() == 1 and device.type == "cuda":
         for case in ("surface", "map_rpg", "map_dsec", "tracking"):
@@ -3254,15 +3244,13 @@ def bench_phase(card) -> dict:
         loops.append(loop)
         return loop
 
-    for info in KERNELS.values():
-        info["module"].KERNEL.launches = 0
+    reset_launches()
     tb.ResidentLoop = recorded
     try:
         line = tb.run("cuda")
     finally:
         tb.ResidentLoop = ResidentLoop
-    launches = {k: info["module"].KERNEL.launches
-                for k, info in KERNELS.items()}
+    launches = launch_counts()
     log(line)
     system = line["system"]
     log(dict(bench_closed_loop=card, launches=launches,
@@ -3398,6 +3386,20 @@ CYCLE_KERNELS = ("remap", "patches", "lm", "regularize", "bm", "fuse")
 UNREGULARIZED_KERNELS = ("remap", "patches", "lm", "track", "bm", "fuse")
 
 
+def reset_launches() -> None:
+    for info in KERNELS.values():
+        info["module"].KERNEL.launches = info["module"].KERNEL.replayed = 0
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches since reset_launches(): the host's calls
+    and the launches inside the live WORKING cycle's graph replays
+    (``CudaKernel.replayed``). ResidentLoop's replays are not among them:
+    they are counted from the profiler's kernel records."""
+    return {k: info["module"].KERNEL.launches
+            + info["module"].KERNEL.replayed for k, info in KERNELS.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3450,14 +3452,12 @@ def main() -> int:
     launches = {}
     records = {}
     for name in ("rpg", "dsec"):
-        for info in KERNELS.values():
-            info["module"].KERNEL.launches = 0
+        reset_launches()
         scene, ticks, frames = streams[name]
         records[name] = run_cycle(name, rigs[name], cfgs[name], scene,
                                   ticks[:SCENES[name]["cycle_ticks"]], frames,
                                   "cuda")
-        launches[name] = {k: info["module"].KERNEL.launches
-                          for k, info in KERNELS.items()}
+        launches[name] = launch_counts()
         for rec in records[name]:
             log(dict(_public(rec), card=card))
         profile = [r for r in records[name] if "profile" in r][0]["profile"]
@@ -3485,12 +3485,15 @@ def main() -> int:
     log(dict(regularize_dispatch(records["rpg"], scene, ticks, cfgs["rpg"]),
              card=card))
 
-    for info in KERNELS.values():
-        info["module"].KERNEL.launches = 0
-    loop = run_closed_loop(rigs["rpg"], cfgs["rpg"], scene, ticks, frames,
-                           "cuda")
-    launches["closed_loop"] = {k: info["module"].KERNEL.launches
-                               for k, info in KERNELS.items()}
+    reset_launches()
+    tracer.enable()
+    try:
+        loop = run_closed_loop(rigs["rpg"], cfgs["rpg"], scene, ticks,
+                               frames, "cuda")
+        cycles = tracer.take()["counters"]
+    finally:
+        tracer.disable()
+    launches["closed_loop"] = launch_counts()
     system = loop["system"]
     tracked = [r for r in loop["rolls"] if r["lm_stats"] is not None]
     summary = dict(
@@ -3500,18 +3503,28 @@ def main() -> int:
         static_pose_ate_m=loop["static_ate"],
         tracking_rejects=system.stats["tracking_rejects"],
         launches=launches["closed_loop"],
+        working_cycles={k: cycles.get(k, 0) for k in (
+            "cycle.replays", "cycle.eager", "graph.captures")},
         sgm_bootstrap_ms=loop["stage_ms"][0],
         ms_per_tracked_tick=[r["ms_per_tick"] for r in tracked],
         mapping_ms=[r["mapping_ms"] for r in tracked])
     summary["tracked_roll_profile"] = profile_tracked_roll(system, ticks,
                                                            frames)
     log(summary)
+    # every WORKING cycle is one replay of the graph captured at the
+    # first, and each replay runs every kernel of the cycle
+    n_cycles = cycles.get("cycle.replays", 0)
     if not (system.status.value == "WORKING" and tracked
             and min(launches["closed_loop"].values()) > 0
+            and n_cycles > 0 and cycles.get("graph.captures") == 1
+            and "cycle.eager" not in cycles
+            and min(launches["closed_loop"][k] for k in CYCLE_KERNELS)
+            >= n_cycles
             and loop["ate"] < CLOSED_LOOP_ATE_BAR):
         raise AssertionError(f"closed loop failed: status "
                              f"{system.status.value}, ATE {loop['ate']}, "
-                             f"launches {launches['closed_loop']}")
+                             f"launches {launches['closed_loop']}, "
+                             f"cycles {cycles}")
     log(dict(check_tracking_solve(system, cpu_rig, cfgs["rpg"]), card=card))
     log(dict(check_sgm(loop["boot"], cfgs["rpg"]), card=card))
     log(dict(check_precision(system, cpu_rig, cfgs["rpg"]), card=card))

@@ -85,17 +85,25 @@ def _load(source: str) -> ctypes.CDLL:
 
 
 class CudaKernel:
-    """One launcher of one source file, with its launch count.
+    """One launcher of one source file, with its launch counts.
 
     ``launches`` counts the calls of :meth:`launch` that handed a kernel
-    to the card (the plain twins never touch it)."""
+    to the card (the plain twins never touch it). ``replayed`` counts
+    the launches inside replays of a CUDA graph whose replayer adds them
+    (``MappingCycle.working_cycle``: what :func:`launch_counts` saw its
+    capture record, once a replay); ``ResidentLoop``'s replays are
+    counted from the profiler's kernel records instead."""
+
+    every: list = []      # each wrapper made, for launch_counts
 
     def __init__(self, source: str, symbol: str, argtypes):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes) + [ctypes.c_void_p]   # + stream
         self.launches = 0
+        self.replayed = 0
         self._fn = None
+        CudaKernel.every.append(self)
 
     def launch(self, *args) -> None:
         """Call the launcher on PyTorch's current stream; tensors pass as
@@ -113,6 +121,11 @@ class CudaKernel:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
                                f"{err} ({self.source})")
         self.launches += 1
+
+
+def launch_counts() -> dict:
+    """Each kernel wrapper's ``launches`` so far."""
+    return {k: k.launches for k in CudaKernel.every}
 
 
 def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:

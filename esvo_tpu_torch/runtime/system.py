@@ -11,7 +11,10 @@ state. Its programs are the JAX package's:
 - ``rebuild_frame``: propagate the whole window -> Student-t fusion ->
   clean -> regularize -> export the map points;
 - ``sgm_estimate`` and ``seed_frame``: the SGM bootstrap and its naive
-  fusion.
+  fusion;
+- ``working_cycle``: ``mapping_estimate`` -> ``write_history`` ->
+  ``rebuild_frame`` on static buffers, on the card one CUDA graph replay
+  (the live path's WORKING cycle; runtime/resident.py graphs whole rolls).
 
 ``EsvoSystem`` is the host-side scheduler around one ``MappingCycle``:
 per sync tick it renders the surfaces and, while WORKING, registers the
@@ -36,7 +39,9 @@ CUDA graph. The entry points (``MappingCycle``'s stages, ``track``,
 """
 from __future__ import annotations
 
+import dataclasses
 import enum
+import math
 import os
 import warnings
 
@@ -53,13 +58,14 @@ from esvo_tpu_torch.mapping import depth_refinement as dr
 from esvo_tpu_torch.mapping import fusion as fu
 from esvo_tpu_torch.mapping import initialization as init
 from esvo_tpu_torch.mapping.regularization import regularize
+from esvo_tpu_torch.ops import _build
 from esvo_tpu_torch.ops.interp import gather2d
 from esvo_tpu_torch.parallel import sharding as ps
 from esvo_tpu_torch.runtime.config import SystemConfig
 from esvo_tpu_torch.surface import time_surface as tsf
 from esvo_tpu_torch.tracking import registration as reg
 from esvo_tpu_torch.utils.precision import highest_precision
-from esvo_tpu_torch.utils.profiling import count, span
+from esvo_tpu_torch.utils.profiling import count, device_span, span
 
 _CAMERA_TENSORS = ("K", "D", "R", "P")
 _CAMERA_MAPS = ("lut", "inv_map", "mask")
@@ -93,6 +99,7 @@ class MappingCycle(nn.Module):
         self.W = rig.left.width
         self.N = self.cfg.mapping.process_event_num
         self.F = self.cfg.history_frames
+        self._static: dict = {}       # working_cycle's buffers by signature
         self.reset()
 
     @property
@@ -291,6 +298,217 @@ class MappingCycle(nn.Module):
         return dr.DepthEstimates(**{
             name: h.index_copy(0, idx, getattr(est, name)[None].to(h.dtype))
             for name, h in vars(history).items()})
+
+    # -- the WORKING cycle on static buffers ---------------------------------
+    @highest_precision()
+    def working_cycle(self, ts_l, ts_r, ev: dict, pose_times, pose_tab,
+                      T_world_frame):
+        """One WORKING cycle, advancing the window: mapping_estimate ->
+        write_history at hist_slot -> rebuild_frame. ev: the left frame's
+        x, y, t, valid; pose_times (S,), pose_tab (S, 4, 4),
+        T_world_frame (4, 4): host arrays.
+
+        The cycle reads static buffers that the host fills first (on the
+        card the host arrays go through one pinned buffer and one
+        non-blocking copy). On the card without a mesh it is one replay of
+        a CUDA graph, captured at the first cycle of each input signature
+        (event capacity and dtypes); on the CPU, or with a mesh (a sharded
+        cycle is not captured, as ``ResidentLoop`` refuses a mesh), the
+        same body runs eagerly. The graphs live on the cycle, so
+        ``EsvoSystem.reconfigure`` drops them with it.
+
+        Returns (grid, points_world, occupied, counters, bm_keys):
+        counters is one int64 row (estimates, the block-matching counters
+        in bm_keys' order, fusions, dropped candidates, map points). Every
+        tensor returned, and the new ``history``, lies in storage made for
+        this cycle, never in a buffer that a later cycle writes: callers
+        keep them by reference (the REF_HISTORY ring; a copy of the state
+        taken before a tick) and must read the same values after any later
+        cycle."""
+        host = ([torch.as_tensor(np.asarray(ev[k])) for k in ("x", "y")]
+                + [torch.as_tensor(np.asarray(ev["t"]), dtype=self.dtype),
+                   torch.as_tensor(np.asarray(ev["valid"]))]
+                + [torch.as_tensor(np.asarray(a), dtype=self.dtype)
+                   for a in (pose_times, pose_tab, T_world_frame)])
+        graphed = self.device.type == "cuda" and self.mesh is None
+        with span("tick.map.stage"):
+            st = self._static_cycle([ts_l, ts_r], host)
+            st.ts[0].copy_(ts_l)
+            st.ts[1].copy_(ts_r)
+            if st.pinned is not None:
+                # refill the pinned buffer only once its last copy has
+                # finished
+                st.ready.synchronize()
+                for p, h in zip(st.pinned.views, host):
+                    p.copy_(h)
+                st.inputs.data.copy_(st.pinned.data, non_blocking=True)
+                st.ready.record(torch.cuda.current_stream(self.device))
+            else:
+                for d, h in zip(st.inputs.views, host):
+                    d.copy_(h)
+            # the static window holds what this signature's last cycle
+            # published; a window rebound since (a world correction, a
+            # degrade, a bootstrap, another signature's cycle) is copied in.
+            # The published window is never changed in place.
+            if self.history is not st.published:
+                for d, h in zip(st.window.views, vars(self.history).values()):
+                    d.copy_(h)
+            st.slot.fill_(self.hist_slot)
+        if graphed:
+            if st.graph is None:
+                self._capture(st)
+            with device_span("tick.map.replay"):
+                st.graph.replay()
+            for kernel, n in st.launches.items():
+                kernel.replayed += n
+            count("cycle.replays")
+        else:
+            self._cycle_into_buffers(st)
+            count("cycle.eager")
+        with span("tick.map.publish"):
+            st.published = self.history = dr.DepthEstimates(
+                *st.window.fresh())
+            *grid, counters = st.out.fresh()
+            pts, occ = st.map.fresh()
+        self.hist_slot = (self.hist_slot + 1) % self.F
+        return fu.DepthGrid(*grid), pts, occ, counters, st.bm_keys
+
+    def _static_cycle(self, ts: list, host: list) -> "_StaticCycle":
+        """The static buffers for inputs of this signature, allocated at
+        its first cycle."""
+        key = tuple((tuple(a.shape), a.dtype) for a in ts + host)
+        st = self._static.get(key)
+        if st is None:
+            dev = self.device
+            specs = [(a.shape, a.dtype) for a in host]
+            on_card = dev.type == "cuda"
+            st = self._static[key] = _StaticCycle(
+                ts=[torch.empty_like(a, device=dev) for a in ts],
+                inputs=_Packed(specs, dev),
+                window=_Packed([(h.shape, h.dtype) for h in
+                                vars(self.history).values()], dev),
+                slot=torch.zeros((), dtype=torch.int64, device=dev),
+                pinned=_Packed(specs, "cpu", pin=True) if on_card else None,
+                ready=torch.cuda.Event() if on_card else None)
+        return st
+
+    def _cycle_body(self, ts: list, inputs: list, window: list,
+                    slot: torch.Tensor) -> tuple:
+        """The cycle on the given inputs, which it leaves as they are.
+        Returns (the new window's fields, the grid's fields and the
+        counters, [points, occupancy], the block-matching counters'
+        keys): the groups that ``_StaticCycle`` packs apart."""
+        est, n, bm_stats = self.mapping_estimate(*ts, *inputs)
+        history = self.write_history(dr.DepthEstimates(*window), est, slot)
+        grid, pts, occ, nf, nd = self.rebuild_frame(history, inputs[-1])
+        counters = torch.stack([c.to(torch.int64) for c in (
+            n, *bm_stats.values(), nf, nd, torch.sum(occ))])
+        return (list(vars(history).values()),
+                [*vars(grid).values(), counters], [pts, occ], tuple(bm_stats))
+
+    def _cycle_into_buffers(self, st: "_StaticCycle") -> None:
+        """What a graph captures: the cycle on the static inputs, its new
+        window and outputs written into the static buffers."""
+        window, out, ref_map, st.bm_keys = self._cycle_body(
+            st.ts, st.inputs.views, st.window.views, st.slot)
+        if st.out is None:
+            st.out = _Packed.like(out, self.device)
+            st.map = _Packed.like(ref_map, self.device)
+        for buf, got in ((st.window, window), (st.out, out),
+                         (st.map, ref_map)):
+            for d, o in zip(buf.views, got):
+                d.copy_(o)
+
+    def _capture(self, st: "_StaticCycle") -> None:
+        """Warm up on copies of the static inputs on a side stream
+        (filling every lazy cache: kernel builds, cached constants, library
+        handles; the outputs' buffers sized), then capture one cycle.
+        Errors propagate and keep no graph: nothing runs eagerly in the
+        graph's place."""
+        with span("tick.map.capture"):
+            side = torch.cuda.Stream(device=self.device)
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                copy = lambda ts: [t.clone() for t in ts]
+                _, out, ref_map, _ = self._cycle_body(
+                    copy(st.ts), copy(st.inputs.views),
+                    copy(st.window.views), st.slot.clone())
+            torch.cuda.current_stream().wait_stream(side)
+            if st.out is None:
+                st.out = _Packed.like(out, self.device)
+                st.map = _Packed.like(ref_map, self.device)
+            graph = torch.cuda.CUDAGraph()
+            before = _build.launch_counts()
+            with torch.cuda.graph(graph):
+                self._cycle_into_buffers(st)
+        # the capture's kernel calls launched nothing: they count as
+        # ``replayed`` at each replay
+        st.launches = {k: k.launches - n for k, n in before.items()
+                       if k.launches != n}
+        for kernel, n in st.launches.items():
+            kernel.launches -= n
+        st.graph = graph
+        count("graph.captures")
+
+
+class _Packed:
+    """Tensors of fixed shapes and dtypes laid out in one byte buffer, so
+    that the set moves in one copy. Each starts at a 256-byte boundary,
+    as a fresh allocation does."""
+
+    def __init__(self, specs: list, device, pin: bool = False):
+        self.specs = []       # (shape, contiguous strides, dtype, offset)
+        end = 0
+        for shape, dtype in specs:
+            strides = tuple(math.prod(shape[i + 1:])
+                            for i in range(len(shape)))
+            # the offset in elements of the dtype
+            self.specs.append((tuple(shape), strides, dtype,
+                               end // dtype.itemsize))
+            end += -(-math.prod(shape) * dtype.itemsize // 256) * 256
+        self.data = torch.empty(end, dtype=torch.uint8, device=device,
+                                pin_memory=pin)
+        self.views = self.unpack(self.data)
+
+    @classmethod
+    def like(cls, tensors: list, device) -> "_Packed":
+        return cls([(t.shape, t.dtype) for t in tensors], device)
+
+    def unpack(self, data: torch.Tensor) -> list:
+        """The tensors as views of `data`, a whole buffer of this
+        layout."""
+        typed = {dtype: data.view(dtype) for _, _, dtype, _ in self.specs}
+        return [typed[dtype].as_strided(shape, strides, offset)
+                for shape, strides, dtype, offset in self.specs]
+
+    def fresh(self) -> list:
+        """The tensors as views of a copy of the buffer: storage that no
+        later write to the buffer reaches."""
+        return self.unpack(self.data.clone())
+
+
+@dataclasses.dataclass
+class _StaticCycle:
+    """One input signature's buffers of ``MappingCycle.working_cycle``:
+    the inputs that the host fills before each cycle, the window and the
+    outputs that the cycle writes and, on the card, its graph."""
+    ts: list                      # the two surfaces
+    inputs: _Packed               # x, y, t, valid, the pose table and
+    #                               T_world_frame (mapping_estimate's order)
+    window: _Packed               # the window's fields: read, then written
+    slot: torch.Tensor            # 0-d int64 ring slot
+    pinned: _Packed | None        # host staging of `inputs` (card only)
+    ready: object                 # CUDA event after the last staging copy
+    # sized at the first cycle: the grid's fields and the counters; the
+    # map export (points, occupancy), apart since the REF_HISTORY ring
+    # keeps it for several cycles
+    out: _Packed | None = None
+    map: _Packed | None = None
+    published: object = None      # the window this signature published
+    graph: object = None
+    launches: dict = dataclasses.field(default_factory=dict)  # a replay's,
+    #                               by kernel wrapper
+    bm_keys: tuple = ()
 
 
 # ---------------------------------------------------------------------------
@@ -515,10 +733,10 @@ class EsvoSystem:
         return tsf.EventBatch.from_arrays(ev["x"], ev["y"], ev["t"], ev["p"],
                                           ev["valid"], device=self.device)
 
-    def _pose_table(self):
-        """Fixed-size (pose_table_size,) stamped-pose table: the newest
-        poses, padded by repeating the last one at strictly increasing
-        times (queries past the end clamp to the latest pose)."""
+    def _pose_arrays(self):
+        """Fixed-size (pose_table_size,) stamped-pose table as host arrays:
+        the newest poses, padded by repeating the last one at strictly
+        increasing times (queries past the end clamp to the latest pose)."""
         S = self.pose_table_size
         times = np.asarray(self.pose_times[-S:], np.float64)
         poses = np.asarray(self.pose_list[-S:])
@@ -528,7 +746,11 @@ class EsvoSystem:
                                     times[-1] + 1e-5 * np.arange(1, S - n + 1)])
             poses = np.concatenate(
                 [poses, np.repeat(poses[-1:], S - n, axis=0)])
-        return self._tensor(times), self._tensor(poses)
+        return times, poses
+
+    def _pose_table(self):
+        """``_pose_arrays`` on the device."""
+        return tuple(map(self._tensor, self._pose_arrays()))
 
     def record_pose(self, t: float, T_world_cam: np.ndarray):
         """Feed a pose into the pose table (ground truth in MVStereo mode,
@@ -718,10 +940,12 @@ class EsvoSystem:
 
     def _dispatch_mapping(self, t_sync, ts_l, ts_r, ev_left, T_wf,
                           gt_mode: bool, out: dict) -> bool:
-        """Queue one WORKING mapping cycle on the device without waiting
-        for it: its handles are parked in `_pending_mapping` for
-        `_finalize_pending_mapping`. Returns False when the pose table no
-        longer covers the frame's oldest event (the cycle is skipped)."""
+        """Queue one WORKING mapping cycle on the device
+        (``MappingCycle.working_cycle``: one graph replay on the card)
+        without waiting for it: its outputs are parked in
+        `_pending_mapping` for `_finalize_pending_mapping`. Returns False
+        when the pose table no longer covers the frame's oldest event (the
+        cycle is skipped)."""
         with span("tick.map"):
             ev_t = np.asarray(ev_left["t"])
             ev_ok = np.asarray(ev_left["valid"])
@@ -733,20 +957,14 @@ class EsvoSystem:
                     self.stats["pose_miss_skips"] += 1
                     out["pose_miss_skip"] = True
                     return False
-            dev = self.device
-            pt_t, pt_T = self._pose_table()
-            T_wf_dev = self._tensor(T_wf)
-            est, n, bm_stats = self.cycle.mapping_estimate(
-                ts_l, ts_r, torch.as_tensor(ev_left["x"], device=dev),
-                torch.as_tensor(ev_left["y"], device=dev), self._tensor(ev_t),
-                torch.as_tensor(ev_ok, device=dev), pt_t, pt_T, T_wf_dev)
-            self._push_history(est)
+            self.grid, self._map_pts, self._map_ok, counters, bm_keys = \
+                self.cycle.working_cycle(ts_l, ts_r, ev_left,
+                                         *self._pose_arrays(), T_wf)
+            self._frames_filled = min(self._frames_filled + 1, self.F)
             self.T_world_frame = T_wf
-            self.grid, self._map_pts, self._map_ok, nf, nd = \
-                self.cycle.rebuild_frame(self.history, T_wf_dev)
             self.last_mapping_time = t_sync
             self._pending_mapping = {
-                "n": n, "bm_stats": bm_stats, "nf": nf, "nd": nd,
+                "counters": counters, "bm_keys": bm_keys,
                 "pts": self._map_pts, "ok": self._map_ok, "gt_mode": gt_mode}
             return True
 
@@ -758,16 +976,17 @@ class EsvoSystem:
             return None
         self._pending_mapping = None
         with span("tick.finalize"):
-            out = {"map_estimates": int(p["n"])}
-            bm_stats = {k: int(v) for k, v in p["bm_stats"].items()}
+            # the cycle's counters in one transfer (working_cycle's row)
+            n, *bm_vals, nf, nd, n_pts = p["counters"].tolist()
+            count("host_reads")
+            out = {"map_estimates": n}
+            bm_stats = dict(zip(p["bm_keys"], bm_vals))
             out["bm_stats"] = bm_stats
             self.stats["bm"] = {k: self.stats["bm"].get(k, 0) + v
                                 for k, v in bm_stats.items()}
-            self.stats["fusions"] += int(p["nf"])
-            self.stats["dropped"] += int(p["nd"])
-            self.stats["map_points"] = int(torch.sum(p["ok"]))
-            # n, each block-matching counter, nf, nd and the point count
-            count("host_reads", 4 + len(bm_stats))
+            self.stats["fusions"] += nf
+            self.stats["dropped"] += nd
+            self.stats["map_points"] = n_pts
             self._push_ref_map(p["pts"], p["ok"], self.stats["map_points"])
             self._accumulate_global_map(p["pts"], p["ok"])
             # degrade only when no ring map can support registration

@@ -23,6 +23,14 @@ from a restored state, each replay against the roll run eagerly (1e-4 m,
 raises instead of running the roll eagerly, and the tracer's spans of a
 capture and of each replay (none from inside a capture).
 
+The live path's WORKING cycle (``MappingCycle.working_cycle``, one CUDA
+graph a cycle): over consecutive mapping ticks with a world correction,
+a degrade and re-bootstrap and a second frame capacity, each replay's
+window, grid, map points, occupancy and counters bit for bit the stages
+called eagerly on the same inputs, no eager K2 launch on a replay, one
+capture a capacity; published tensors never overwritten; a capture
+error that raises and keeps no graph.
+
 The backend: the loop-closure descriptor, the ICP verification, bundle
 adjustment and the pose graph on the card against the CPU port, BA, the
 pose graph and their segment sums the same bits on every run, and one
@@ -80,7 +88,14 @@ def smoke():
     from esvo_tpu_torch.ops import _build
     _build.build(["remap.cu", "patches.cu", "lm.cu", "track.cu",
                   "regularize.cu", "block_match.cu", "fuse.cu"])
-    return chip_smoke
+    # while this file's tests run, tear CUPTI down after each profiler
+    # session: left up, graphs captured between the file's sessions (the
+    # resident and live-cycle tests) crashed a later profiled replay in
+    # CUPTI (test_resident_replay_launches_k4_once_a_tick, torch 2.11,
+    # CUDA 12.8)
+    with pytest.MonkeyPatch.context() as env:
+        env.setenv("TEARDOWN_CUPTI", "1")
+        yield chip_smoke
 
 
 @pytest.fixture(scope="module")
@@ -644,6 +659,191 @@ def test_resident_spans_on_the_card(smoke, resident):
     assert not any(s["name"] == "inside.capture" for s in spans)
     assert got["counters"] == {"graph.captures": 1, "resident.replays": 2,
                                "resident.ticks": 2 * smoke.ROLL}
+
+
+# -- the live path's WORKING cycle as one CUDA graph -------------------------
+
+LIVE_TICKS = 45
+
+
+def _one(frames, k, pad: int = 0):
+    """Tick k's frame of both cameras, with `pad` invalid lanes appended
+    (a frame of another capacity)."""
+    out = []
+    for f in frames:
+        ev = {key: v[k] for key, v in f.items() if key != "dropped"}
+        out.append({key: np.concatenate([v, np.zeros(pad, v.dtype)])
+                    for key, v in ev.items()})
+    return out
+
+
+def _same_bits(a, b) -> bool:
+    """Equal bit for bit (NaN payloads included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = lambda t: t.contiguous().reshape(-1).view(torch.uint8)
+    return torch.equal(view(a), view(b))
+
+
+def _cycle_by_stages(cycle, hist, slot, ts_l, ts_r, ev, pose_times,
+                     pose_tab, T_wf):
+    """working_cycle's outputs through the cycle's stages called eagerly
+    on the same inputs: (new window, grid, points, occupied, counters)."""
+    dev = lambda a, dt=None: torch.as_tensor(np.asarray(a), dtype=dt,
+                                             device="cuda")
+    T = dev(T_wf, cycle.dtype)
+    est, n, bm_stats = cycle.mapping_estimate(
+        ts_l, ts_r, dev(ev["x"]), dev(ev["y"]), dev(ev["t"], cycle.dtype),
+        dev(ev["valid"]), dev(pose_times, cycle.dtype),
+        dev(pose_tab, cycle.dtype), T)
+    hist = cycle.write_history(hist, est, torch.tensor(slot, device="cuda"))
+    grid, pts, occ, nf, nd = cycle.rebuild_frame(hist, T)
+    counters = torch.stack([c.to(torch.int64) for c in (
+        n, *bm_stats.values(), nf, nd, torch.sum(occ))])
+    return hist, grid, pts, occ, counters
+
+
+@pytest.fixture(scope="module")
+def live(smoke, rig):
+    """An rpg EsvoSystem on the card run through process_tick after its
+    bootstrap roll, every WORKING cycle held bit for bit against its
+    stages called eagerly on the same inputs (``log``, a record a
+    cycle), with a world correction between two cycles, a degrade and
+    re-bootstrap, and a frame of a second capacity on tick 39. Returns
+    (system, log, tracer counters, the tensors of system.history and
+    system.grid after tick 14, each with a copy taken then)."""
+    from esvo_tpu_torch.utils import profiling as prof
+    cfg = smoke.SystemConfig.from_dict(smoke.RPG)
+    scene, ticks, frames = smoke.make_stream("rpg", rig, n_ticks=LIVE_TICKS)
+    system = smoke.EsvoSystem(rig, cfg, device="cuda")
+    system.process_ticks(*smoke._roll_inputs(frames, ticks, 0))
+    assert system.status.value == "WORKING"
+    cycle, log = system.cycle, []
+    real = cycle.working_cycle
+
+    def spy(ts_l, ts_r, ev, pose_times, pose_tab, T_wf):
+        hist, slot = cycle.history, cycle.hist_slot
+        captured = sum(s.graph is not None for s in cycle._static.values())
+        k2 = smoke.lm.KERNEL.launches, smoke.lm.KERNEL.replayed
+        got = real(ts_l, ts_r, ev, pose_times, pose_tab, T_wf)
+        rec = dict(captured=sum(s.graph is not None
+                                for s in cycle._static.values()) - captured,
+                   k2_launches=smoke.lm.KERNEL.launches - k2[0],
+                   k2_replayed=smoke.lm.KERNEL.replayed - k2[1],
+                   cap=len(ev["x"]))
+        want = _cycle_by_stages(cycle, hist, slot, ts_l, ts_r, ev,
+                                pose_times, pose_tab, T_wf)
+        grid = [getattr(got[0], f) for f in vars(want[1])]
+        rec["same"] = dict(
+            window=all(_same_bits(a, b) for a, b in zip(
+                vars(cycle.history).values(), vars(want[0]).values())),
+            grid=all(_same_bits(a, b) for a, b in zip(
+                grid, vars(want[1]).values())),
+            points=_same_bits(got[1], want[2]),
+            occupied=_same_bits(got[2], want[3]),
+            counters=_same_bits(got[3], want[4]))
+        rec["estimates"] = int(want[4][0])
+        log.append(rec)
+        return got
+
+    cycle.working_cycle = spy
+    kept = None
+    prof.enable()
+    try:
+        for k in range(smoke.ROLL, LIVE_TICKS):
+            if k == 29:
+                system._degrade()         # re-bootstraps on this tick
+            fl, fr = _one(frames, k, pad=1000 if k == 39 else 0)
+            out = system.process_tick(float(ticks[k]), fl, fr,
+                                      do_mapping=k % 5 == 4)
+            if k == 29:
+                assert "sgm_points" in out
+            if k == 14:
+                kept = [(t, t.clone()) for t in (
+                    *vars(system.history).values(),
+                    *vars(system.grid).values())]
+                corr = np.eye(4)
+                corr[:3, 3] = [0.05, -0.02, 0.01]
+                system.apply_world_correction(corr)
+        counters = prof.take()["counters"]
+    finally:
+        prof.disable()
+        prof.take()
+    return system, log, counters, kept
+
+
+def test_live_cycle_replays_equal_its_stages(smoke, live):
+    """Every WORKING cycle of the live path (before and after a world
+    correction, after a degrade and re-bootstrap, at two frame
+    capacities) is one replay whose window, grid, map points, occupancy
+    and counters are the stages' own bits; a replay launches no K2
+    eagerly and counts the graph's K2 launches as replayed (a capture
+    counts only its warm-up's); each capacity captures its graph once
+    (none re-captured in turns); the tracer counts a replay for every
+    cycle."""
+    system, log, counters, _ = live
+    assert system.status.value == "WORKING"
+    assert [r["cap"] for r in log] == [8000] * 5 + [9000, 8000]
+    assert [r["captured"] for r in log] == [1, 0, 0, 0, 0, 1, 0]
+    for r in log:
+        assert all(r["same"].values()), r
+        assert r["estimates"] > 0 and r["k2_replayed"] >= 1, r
+        assert r["k2_launches"] == (r["k2_replayed"] if r["captured"]
+                                    else 0), r
+    assert len(system.cycle._static) == 2
+    assert counters["cycle.replays"] == len(log)
+    assert counters["graph.captures"] == 2
+    assert "cycle.eager" not in counters
+
+
+def test_live_cycle_publishes_copies(smoke, live):
+    """Tensors taken from system.history and system.grid on tick 14 read
+    the same after six more mapping ticks (the tick driver of the
+    benchmark keeps references); no two REF_HISTORY maps, and no map and
+    a buffer that a graph writes, share storage."""
+    system, _, _, kept = live
+    assert all(_same_bits(t, copy) for t, copy in kept)
+    maps = [{t.untyped_storage().data_ptr() for t in (p, ok)}
+            for p, ok, _ in system._ref_maps]
+    assert len(maps) >= 4
+    assert len(set().union(*maps)) == sum(map(len, maps))
+    static = {b.data.untyped_storage().data_ptr()
+              for st in system.cycle._static.values()
+              for b in (st.window, st.out, st.map)}
+    assert not set().union(*maps) & static
+
+
+def test_live_cycle_capture_error_raises(smoke, live):
+    """A cycle that syncs the host cannot be captured: the capture
+    raises, no graph is kept and the window is not advanced; the next
+    cycle with the real body captures and runs."""
+    system, _, _, _ = live
+    system.reconfigure(system.cfg, reset=False)     # a cycle with no graph
+    cycle = system.cycle
+    real_body = cycle._cycle_body
+
+    def body_with_host_sync(*args):
+        out = real_body(*args)
+        int(out[1][-1].sum())           # the counters to the host
+        return out
+
+    scene, ticks, frames = smoke.make_stream("rpg", smoke.make_rig(
+        "rpg", "cuda"), n_ticks=10)
+    s_l, s_r = cycle.render_pair(system.ts_state_left,
+                                 system.ts_state_right, float(ticks[-1]))
+    args = (s_l, s_r, _one(frames, 9)[0], *system._pose_arrays(),
+            system.T_world_cur)
+    hist, slot = cycle.history, cycle.hist_slot
+    cycle._cycle_body = body_with_host_sync
+    with pytest.raises(RuntimeError):
+        cycle.working_cycle(*args)
+    torch.cuda.synchronize()
+    assert [st.graph for st in cycle._static.values()] == [None]
+    assert cycle.history is hist and cycle.hist_slot == slot
+    del cycle._cycle_body
+    cycle.working_cycle(*args)
+    assert [st.graph is not None for st in cycle._static.values()] == [True]
+    assert cycle.hist_slot == (slot + 1) % cycle.F
 
 
 # -- the backend and the event simulator (chip_smoke.py's cases) ------------

@@ -14,10 +14,15 @@
 - The closed loop of the port alone, through process_tick and through
   process_ticks in rolls of 5, on the world of tests/test_system.py:
   WORKING at the end, and the ATE under that test's bars (0.08 / 0.12 m).
+- The WORKING cycle on static buffers (``MappingCycle.working_cycle``,
+  eager on the CPU) against the cycle's stages called directly, through
+  process_tick and process_ticks: every output, the stats and the global
+  map bit for bit; published tensors never change afterwards.
 - record_pose's guards, as tests/test_system.py checks them; reconfigure;
   and that nothing falls back to the CPU.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -270,6 +275,103 @@ def test_reconfigure_and_watchdog(loop_world):
     assert system.status == SystemStatus.INITIALIZATION
 
 
+def _cycle_by_stages(cycle, ts_l, ts_r, ev, pose_times, pose_tab, T_wf):
+    """``MappingCycle.working_cycle`` through the cycle's stages called
+    directly on tensors made from the host arrays (no static buffers)."""
+    real = lambda a: torch.as_tensor(np.asarray(a), dtype=cycle.dtype)
+    T = real(T_wf)
+    est, n, bm_stats = cycle.mapping_estimate(
+        ts_l, ts_r, torch.as_tensor(ev["x"]), torch.as_tensor(ev["y"]),
+        real(ev["t"]), torch.as_tensor(ev["valid"]), real(pose_times),
+        real(pose_tab), T)
+    cycle.push_history(est)
+    grid, pts, occ, nf, nd = cycle.rebuild_frame(cycle.history, T)
+    counters = torch.stack([c.to(torch.int64) for c in (
+        n, *bm_stats.values(), nf, nd, torch.sum(occ))])
+    return grid, pts, occ, counters, tuple(bm_stats)
+
+
+def _assert_same(a, b, path="out"):
+    """Equal bit for bit (NaN matching NaN), recursively through dicts,
+    lists, tuples, dataclasses of tensors, tensors and arrays."""
+    if dataclasses.is_dataclass(a):
+        a, b = vars(a), vars(b)
+    if isinstance(a, dict):
+        assert set(a) == set(b), (path, set(a) ^ set(b))
+        for k in a:
+            _assert_same(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (u, v) in enumerate(zip(a, b)):
+            _assert_same(u, v, f"{path}[{i}]")
+    elif isinstance(a, (torch.Tensor, np.ndarray)):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and np.array_equal(
+            a, b, equal_nan=a.dtype.kind == "f"), path
+    else:
+        assert type(a) is type(b) and a == b, (path, a, b)
+
+
+@pytest.mark.parametrize("roll", [1, 5], ids=["process_tick",
+                                              "process_ticks"])
+def test_buffered_cycle_equals_its_stages(loop_world, roll):
+    """The WORKING cycle on static buffers (``working_cycle``, its body
+    eager on the CPU) against the cycle's stages called directly in a
+    second system: every tick's outputs (``map_estimates``, ``bm_stats``
+    and the surfaces among them), the stats, the global map, the
+    trajectory, the window and the grid bit for bit, over the bootstrap,
+    WORKING cycles, a world correction and a degrade with its
+    re-bootstrap. Tensors published before two more cycles read the
+    same after them, and no two REF_HISTORY maps share storage."""
+    rig, scene, ticks, (fl, fr) = loop_world
+    systems = [EsvoSystem(rig, _loop_config(), device="cpu")
+               for _ in range(2)]
+    ref = systems[1]
+    ref.cycle.working_cycle = functools.partial(_cycle_by_stages, ref.cycle)
+    kept = None
+    for k0 in range(0, 40, roll):
+        outs = []
+        for sy in systems:
+            if roll == 1:
+                outs.append(sy.process_tick(float(ticks[k0]),
+                                            _frame(fl, k0), _frame(fr, k0),
+                                            do_mapping=k0 % 5 == 4))
+            else:
+                sl = slice(k0, k0 + roll)
+                outs.append(sy.process_ticks(
+                    ticks[sl], {k: v[sl] for k, v in fl.items()
+                                if k != "dropped"},
+                    {k: v[sl] for k, v in fr.items() if k != "dropped"},
+                    do_mapping=True))
+        _assert_same(*outs, path=f"tick {k0}")
+        got = systems[0]
+        if k0 // 5 == 2:
+            kept = [(t, t.clone()) for a in (got.history, got.grid)
+                    for t in vars(a).values()]
+        if k0 // 5 == 4:
+            corr = np.eye(4)
+            corr[:3, 3] = [0.02, -0.01, 0.03]
+            for sy in systems:
+                sy.apply_world_correction(corr)
+        if k0 // 5 == 5:
+            for sy in systems:
+                sy._degrade()
+    for sy in systems:
+        sy.flush()
+    assert got.status == SystemStatus.WORKING and got.reset_count == 1
+    assert len(got.cycle._static) == 1 and not ref.cycle._static
+    for name in ("stats", "status", "grid", "history", "T_world_frame",
+                 "_frames_filled", "_ref_maps"):
+        _assert_same(getattr(got, name), getattr(ref, name), name)
+    _assert_same(got.cycle.hist_slot, ref.cycle.hist_slot)
+    _assert_same(got.global_map(), ref.global_map())
+    _assert_same(got.trajectory(), ref.trajectory())
+    for before, copy in kept:
+        _assert_same(before, copy)
+    ring = [p.untyped_storage().data_ptr() for p, _, _ in got._ref_maps]
+    assert len(set(ring)) == len(ring)
+
+
 # -- record_pose guards, as tests/test_system.py -----------------------------
 
 def _guard_system(**tracking):
@@ -314,6 +416,58 @@ def test_record_pose_rejects_degenerate():
     spin[:3, :3] = [[0, -1, 0], [1, 0, 0], [0, 0, 1]]  # 90 deg in 10 ms
     system.record_pose(12.01, spin)
     assert system.stats["tracking_rejects"] == 5
+
+
+def test_pose_table_follows_the_pose_lists():
+    """The pose table a mapping cycle reads holds the newest stamped
+    poses of the pose lists, padded by the last pose at increasing times:
+    before and past the table's size, after several poses at once, after
+    a world correction (a list rebound), an extend (as ResidentLoop.finish
+    does) by fewer and by more poses than the table holds, and a reset."""
+    system = _guard_system()
+    system.pose_table_size = 8
+    t = [0.0]
+
+    def add(k):
+        for _ in range(k):
+            t[0] += 0.01
+            T = system.T_world_cur.copy()
+            T[:3, 3] += [1e-3, -2e-3, 5e-4]
+            system.record_pose(t[0], T)
+
+    def check():
+        S = system.pose_table_size
+        times, poses = system._pose_arrays()
+        n = min(len(system.pose_times), S)
+        assert times.dtype == np.float64 and times.shape == (S,)
+        assert poses.shape == (S, 4, 4)
+        np.testing.assert_array_equal(times[:n], system.pose_times[-n:])
+        np.testing.assert_array_equal(poses[:n],
+                                      np.stack(system.pose_list[-n:]))
+        np.testing.assert_array_equal(
+            poses[n:], np.repeat(poses[n - 1:n], S - n, axis=0))
+        assert np.all(np.diff(times[n - 1:]) > 0)
+
+    for _ in range(12):
+        add(1)
+        check()
+    add(3)
+    check()
+    system.apply_world_correction(np.diag([1.0, -1.0, -1.0, 1.0]))
+    check()
+    add(2)
+    check()
+    for k in (5, 12):
+        times = t[0] + 0.01 * np.arange(1, k + 1)
+        t[0] = float(times[-1])
+        system.pose_times.extend(times.tolist())
+        system.pose_list.extend([system.T_world_cur.copy()] * k)
+        check()
+    system.reset()
+    check()
+    add(1)
+    check()
+    assert len(system.pose_times) == 2
 
 
 def test_record_pose_reanchors_after_sustained_rejections():

@@ -11,8 +11,10 @@ program records with it, on the CPU.
 - The host path (``EsvoSystem.process_tick``) on the closed-loop world of
   tests/test_torch_system.py: one ``tick`` root a tick with its children
   under it, ``mapped`` on exactly the ticks that dispatched a WORKING
-  cycle, and ``host_reads`` on a mapping tick equal to the read sites
-  (10 in the finalize, 2 in the global map, 1 for tracking).
+  cycle, its stage and publish spans under ``tick.map``, ``cycle.eager``
+  on each of them (no graph on the CPU), and ``host_reads`` on a mapping
+  tick equal to the read sites (the counters' row in the finalize, 2 in
+  the global map, 1 for tracking).
 - ``ResidentLoop`` on the CPU (its roll runs eagerly): ``resident.run``,
   ``stage`` and its parts, ``step`` and ``sync``, ``resident.ticks``
   equal to R * K, and no ``resident.replay`` (no CUDA).
@@ -266,6 +268,7 @@ def test_process_tick_spans(world):
     assert len(groups) == N_TICKS
     parents = {"tick.render": "tick", "tick.track": "tick",
                "tick.track.read": "tick.track", "tick.map": "tick",
+               "tick.map.stage": "tick.map", "tick.map.publish": "tick.map",
                "tick.finalize": "tick", "tick.global_map": "tick.finalize",
                "tick.bootstrap": "tick"}
     for k, root in enumerate(roots):
@@ -280,18 +283,24 @@ def test_process_tick_spans(world):
         if k == 4:
             want += ["tick.bootstrap"]
         if root["attrs"]["mapped"]:
-            want += ["tick.finalize", "tick.global_map", "tick.map"]
+            want += ["tick.finalize", "tick.global_map", "tick.map",
+                     "tick.map.stage", "tick.map.publish"]
         assert names == sorted(want), (k, names)
-        # the read sites: 1 for tracking; on a mapping tick 10 in the
-        # finalize (n, 6 block-matching counters, nf, nd, the point
-        # count) and 2 in the global map; the bootstrap's 2
-        reads = (int(tracked) + 12 * root["attrs"]["mapped"]
+        # the read sites: 1 for tracking; on a mapping tick 1 in the
+        # finalize (the cycle's counters in one row) and 2 in the global
+        # map; the bootstrap's 2
+        reads = (int(tracked) + 3 * root["attrs"]["mapped"]
                  + 2 * (k == 4))
         assert root["counts"].get("host_reads", 0) == reads, k
-    assert roots[9]["counts"]["host_reads"] == 13
-    assert roots[14]["counts"]["host_reads"] == 12
+        # the CPU runs the cycle's body eagerly: no graph, no replay
+        assert root["counts"].get("cycle.eager", 0) == \
+            root["attrs"]["mapped"], k
+    assert roots[9]["counts"]["host_reads"] == 4
+    assert roots[14]["counts"]["host_reads"] == 3
     assert got["counters"]["host_reads"] == sum(
         r["counts"].get("host_reads", 0) for r in roots)
+    assert got["counters"]["cycle.eager"] == 2
+    assert not {"cycle.replays", "graph.captures"} & set(got["counters"])
 
 
 def test_resident_loop_spans(world):
