@@ -30,8 +30,11 @@
    flush(); per roll its status, times, map points and tracker stats; at
    the end the ATE against the scene's ground truth, the kernels'
    launches inside the loop, and a profiled tracked roll (launches per
-   tick, idle share); one tracking solve and one SGM bootstrap held
-   against the CPU port on the same inputs;
+   tick, idle share); the same stream through process_tick one tick at
+   a time (the live path: every tick one replay of the tick's graph,
+   none eager, one capture a body; its tracked tick's median ms); one
+   tracking solve and one SGM bootstrap held against the CPU port on
+   the same inputs;
 6. the resident loop (ResidentLoop: one CUDA graph a roll) on the same
    scene and seed, framed by EventFrameStream: the host path bootstraps,
    then dispatches of RESIDENT_R rolls; capture time, one graph-replayed
@@ -1638,6 +1641,34 @@ def run_closed_loop(rig: StereoRig, cfg: SystemConfig, scene, ticks, frames,
                 ate=ate_rmse(t_est, T_est, t_est, gt, align=True),
                 static_ate=ate_rmse(t_est, static, t_est, gt, align=True),
                 ticks=len(t_est), stage_ms=stage_ms)
+
+
+def run_live_ticks(rig: StereoRig, cfg: SystemConfig, ticks, frames,
+                   device) -> dict:
+    """EsvoSystem through process_tick one tick at a time over the
+    stream (the live path; a mapping tick every MAP_EVERY), the tracer
+    on. Returns the system, each tick's wall (ms, to a sync) and whether
+    it tracked, and the tracer's counters: ``tick.replays`` /
+    ``tick.eager`` (ticks a graph served / run eagerly),
+    ``graph.captures`` (the ticks' graphs and the cycle's)."""
+    system = EsvoSystem(rig, cfg, device=device)
+    walls, tracked = [], []
+    tracer.enable()
+    try:
+        for k in range(len(ticks)):
+            frame = lambda f: {key: v[k] for key, v in f.items()
+                               if key != "dropped"}
+            t0 = _sync(device)
+            out = system.process_tick(float(ticks[k]), *map(frame, frames),
+                                      do_mapping=k % MAP_EVERY
+                                      == MAP_EVERY - 1)
+            walls.append((_sync(device) - t0) * 1e3)
+            tracked.append("lm_stats" in out)
+        counters = tracer.take()["counters"]
+    finally:
+        tracer.disable()
+    return dict(system=system, walls=walls, tracked=tracked,
+                counters=counters)
 
 
 def profile_tracked_roll(system: EsvoSystem, ticks, frames) -> dict:
@@ -3393,9 +3424,10 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict:
     """Each kernel's launches since reset_launches(): the host's calls
-    and the launches inside the live WORKING cycle's graph replays
-    (``CudaKernel.replayed``). ResidentLoop's replays are not among them:
-    they are counted from the profiler's kernel records."""
+    and the launches inside the live WORKING cycle's and the live tick's
+    graph replays (``CudaKernel.replayed``). ResidentLoop's replays are
+    not among them: they are counted from the profiler's kernel
+    records."""
     return {k: info["module"].KERNEL.launches
             + info["module"].KERNEL.replayed for k, info in KERNELS.items()}
 
@@ -3496,6 +3528,12 @@ def main() -> int:
     launches["closed_loop"] = launch_counts()
     system = loop["system"]
     tracked = [r for r in loop["rolls"] if r["lm_stats"] is not None]
+    # the same stream one tick at a time: every live tick one replay of
+    # the tick's graph (its render and, tracked, its tracking)
+    live = run_live_ticks(rigs["rpg"], cfgs["rpg"], ticks, frames, "cuda")
+    live_counts = {k: live["counters"].get(k, 0) for k in (
+        "tick.replays", "tick.eager", "graph.captures", "cycle.replays")}
+    live_ms = np.asarray(live["walls"])[np.asarray(live["tracked"])]
     summary = dict(
         closed_loop="rpg", card=card, status=system.status.value,
         ticks=loop["ticks"], tracked_rolls=len(tracked),
@@ -3507,7 +3545,13 @@ def main() -> int:
             "cycle.replays", "cycle.eager", "graph.captures")},
         sgm_bootstrap_ms=loop["stage_ms"][0],
         ms_per_tracked_tick=[r["ms_per_tick"] for r in tracked],
-        mapping_ms=[r["mapping_ms"] for r in tracked])
+        mapping_ms=[r["mapping_ms"] for r in tracked],
+        live_ticks=dict(live_counts, ticks=len(live["walls"]),
+                        status=live["system"].status.value,
+                        tick_graphs=len(live["system"]._ticks),
+                        tracked=int(live_ms.size),
+                        tracked_tick_ms_p50=float(np.median(live_ms))
+                        if live_ms.size else None))
     summary["tracked_roll_profile"] = profile_tracked_roll(system, ticks,
                                                            frames)
     log(summary)
@@ -3525,6 +3569,13 @@ def main() -> int:
                              f"{system.status.value}, ATE {loop['ate']}, "
                              f"launches {launches['closed_loop']}, "
                              f"cycles {cycles}")
+    # every live tick a replay, none eager, one capture a tick body
+    if not (live["system"].status.value == "WORKING" and live_ms.size
+            and live_counts["tick.eager"] == 0
+            and live_counts["tick.replays"] == len(live["walls"])
+            and live_counts["graph.captures"] == len(live["system"]._ticks)
+            + len(live["system"].cycle._static)):
+        raise AssertionError(f"live ticks failed: {summary['live_ticks']}")
     log(dict(check_tracking_solve(system, cpu_rig, cfgs["rpg"]), card=card))
     log(dict(check_sgm(loop["boot"], cfgs["rpg"]), card=card))
     log(dict(check_precision(system, cpu_rig, cfgs["rpg"]), card=card))

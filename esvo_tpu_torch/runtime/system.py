@@ -18,10 +18,12 @@ state. Its programs are the JAX package's:
 
 ``EsvoSystem`` is the host-side scheduler around one ``MappingCycle``:
 per sync tick it renders the surfaces and, while WORKING, registers the
-map to the new left surface (the tracker); every 1 / mapping_rate it runs
-a mapping cycle (or, in INITIALIZATION, the SGM bootstrap). It keeps the
-state machine, the pose table with its rigidity and velocity guard, the
-REF_HISTORY ring of map exports, the global cloud and the trajectory.
+map to the new left surface (the tracker), on the card without a mesh as
+one CUDA graph replay on static buffers (``_tick_static``); every 1 /
+mapping_rate it runs a mapping cycle (or, in INITIALIZATION, the SGM
+bootstrap). It keeps the state machine, the pose table with its
+rigidity and velocity guard, the REF_HISTORY ring of map exports, the
+global cloud and the trajectory.
 ``process_ticks`` is the fused roll: K inserts and K chained tracking
 solves (one left render a tick), one point selection, both surfaces
 rendered once at the end, and the mapping cycle's hand-off one roll late.
@@ -420,35 +422,60 @@ class MappingCycle(nn.Module):
                 d.copy_(o)
 
     def _capture(self, st: "_StaticCycle") -> None:
-        """Warm up on copies of the static inputs on a side stream
-        (filling every lazy cache: kernel builds, cached constants, library
-        handles; the outputs' buffers sized), then capture one cycle.
-        Errors propagate and keep no graph: nothing runs eagerly in the
-        graph's place."""
+        """Warm up on copies of the static inputs (``_warm_up``; the
+        outputs' buffers sized from it), then capture one cycle
+        (``_capture_graph``). Errors propagate and keep no graph: nothing
+        runs eagerly in the graph's place."""
         with span("tick.map.capture"):
-            side = torch.cuda.Stream(device=self.device)
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                copy = lambda ts: [t.clone() for t in ts]
-                _, out, ref_map, _ = self._cycle_body(
-                    copy(st.ts), copy(st.inputs.views),
-                    copy(st.window.views), st.slot.clone())
-            torch.cuda.current_stream().wait_stream(side)
+            _, out, ref_map, _ = _warm_up(
+                self.device, lambda: self._cycle_body(
+                    _copies(st.ts), _copies(st.inputs.views),
+                    _copies(st.window.views), st.slot.clone()))
             if st.out is None:
                 st.out = _Packed.like(out, self.device)
                 st.map = _Packed.like(ref_map, self.device)
-            graph = torch.cuda.CUDAGraph()
-            before = _build.launch_counts()
-            with torch.cuda.graph(graph):
-                self._cycle_into_buffers(st)
-        # the capture's kernel calls launched nothing: they count as
-        # ``replayed`` at each replay
-        st.launches = {k: k.launches - n for k, n in before.items()
-                       if k.launches != n}
-        for kernel, n in st.launches.items():
-            kernel.launches -= n
-        st.graph = graph
-        count("graph.captures")
+            st.graph, st.launches = _capture_graph(
+                lambda: self._cycle_into_buffers(st))
+
+
+def _copies(tensors) -> list:
+    return [t.clone() for t in tensors]
+
+
+def _state_tensors(st_l: tsf.TimeSurfaceState,
+                   st_r: tsf.TimeSurfaceState) -> list:
+    """Both surface states' tensors, left's fields first."""
+    return [*vars(st_l).values(), *vars(st_r).values()]
+
+
+def _warm_up(device, body):
+    """``body()`` on a side stream ordered after the current one, which
+    then waits for it: a graph's warm-up, filling every lazy cache
+    (kernel builds, cached constants, library handles) before the
+    capture. Returns what the body returns."""
+    side = torch.cuda.Stream(device=device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = body()
+    torch.cuda.current_stream().wait_stream(side)
+    return got
+
+
+def _capture_graph(body) -> tuple:
+    """Capture ``body()`` as a CUDA graph. Returns (graph, launches): the
+    capture's kernel calls launched nothing, so they move from each
+    wrapper's ``launches`` to the replay's count, which the caller adds
+    to ``replayed`` at each replay."""
+    graph = torch.cuda.CUDAGraph()
+    before = _build.launch_counts()
+    with torch.cuda.graph(graph):
+        body()
+    launches = {k: k.launches - n for k, n in before.items()
+                if k.launches != n}
+    for kernel, n in launches.items():
+        kernel.launches -= n
+    count("graph.captures")
+    return graph, launches
 
 
 class _Packed:
@@ -511,6 +538,34 @@ class _StaticCycle:
     bm_keys: tuple = ()
 
 
+# a live tick's host inputs: each camera's event arrays in EventBatch's
+# fields and dtypes, then the tick time and the two poses
+_EVENT_FIELDS = (("x", torch.int32), ("y", torch.int32),
+                 ("t", torch.float32), ("p", torch.bool),
+                 ("valid", torch.bool))
+
+
+@dataclasses.dataclass
+class _StaticTick:
+    """One body's buffers of a live tick (``EsvoSystem._tick_static``)
+    for one input signature."""
+    inputs: _Packed               # 2 x 5 event arrays, t_sync, T_world_frame,
+    #                               T_world_cur
+    host: list                    # numpy views the host fills: of `pinned`
+    #                               on the card, else of `inputs`
+    pinned: _Packed | None        # host staging of `inputs` (card only)
+    ready: object                 # CUDA event after the last staging copy
+    state: _Packed                # both surfaces' states: read, then written
+    sel: _Packed | None           # the tracker's points and flags; None in
+    #                               the render-only body
+    # sized at the first tick: the two surfaces and, tracked, the row of
+    # the pose, the per-round rms and the point count
+    out: _Packed | None = None
+    published: tuple = (None, None)  # the states this body last published
+    graph: object = None
+    launches: dict = dataclasses.field(default_factory=dict)
+
+
 # ---------------------------------------------------------------------------
 # the closed loop
 # ---------------------------------------------------------------------------
@@ -562,6 +617,7 @@ class EsvoSystem:
         # callbacks of apply_world_correction (a live ResidentLoop mirrors
         # each correction into its device state)
         self._world_correction_observers: list = []
+        self._ticks: dict = {}        # _tick_static's buffers by signature
         self.reset()
 
     @property
@@ -594,6 +650,7 @@ class EsvoSystem:
         self.cfg = config
         self.cycle = MappingCycle(self._rig, config, device=self.device,
                                   mesh=self.mesh)
+        self._ticks = {}              # their graphs hold the old config
         if reset or self.N != old.N or self.F != old.F:
             self.reset()
         else:
@@ -855,14 +912,16 @@ class EsvoSystem:
             fin = self._finalize_pending_mapping()
             if fin:
                 out.update(fin)
-            with span("tick.render"):
-                self.ts_state_left, self.ts_state_right, ts_l, ts_r = \
-                    self.cycle.render_tick(
-                        self.ts_state_left, self.ts_state_right,
-                        self._event_batch(ev_left),
-                        self._event_batch(ev_right), t_sync)
-                ts_l = ts_l.to(self.dtype)
-                ts_r = ts_r.to(self.dtype)
+            # the tick's body: render both surfaces and, WORKING with a
+            # usable map and no given pose, track; one graph replay on the
+            # card without a mesh
+            ref = self._current_ref_map()
+            if not (gt_pose is None and self.status == SystemStatus.WORKING):
+                ref = None
+            body = (self._tick_static
+                    if self.device.type == "cuda" and self.mesh is None
+                    else self._tick_plain)
+            ts_l, ts_r, host = body(t_sync, ev_left, ev_right, ref)
             out["ts_left"] = ts_l
             out["ts_right"] = ts_r
             self.events_since_last_obs = int(np.sum(ev_left["valid"]))
@@ -870,24 +929,10 @@ class EsvoSystem:
                 self.stats["low_event_ticks"] += 1
                 out["low_events"] = True
 
-            ref = self._current_ref_map()
             if gt_pose is not None:
                 self.record_pose(t_sync, gt_pose)
-            elif self.status == SystemStatus.WORKING and ref is not None:
-                with span("tick.track"):
-                    pts, ok = self.select_ref_points(ref[0], ref[1])
-                    T_est, rms = self.track(
-                        ts_l, self._tensor(self.T_world_frame),
-                        self._tensor(self.T_world_cur), pts, ok)
-                    # one transfer: the pose, the per-round rms, the
-                    # points used
-                    with span("tick.track.read"):
-                        host = torch.cat([T_est.reshape(-1), rms,
-                                          torch.sum(ok).to(rms.dtype)[None]
-                                          ]).cpu()
-                    count("host_reads")
-                    host = host.double().numpy()
-                    self.record_pose(t_sync, host[:16].reshape(4, 4))
+            elif host is not None:
+                self.record_pose(t_sync, host[:16].reshape(4, 4))
                 out["tracking_rms"] = host[16:-1]
                 out["lm_stats"] = {"n_points": int(host[-1]),
                                    "n_iter": self.cfg.tracker.max_iteration,
@@ -912,6 +957,167 @@ class EsvoSystem:
             if self.emit_debug_maps:
                 out["maps"] = self.render_debug_maps()
             return out
+
+    # -- a live tick's body ----------------------------------------------------
+    def _tick_plain(self, t_sync, ev_left: dict, ev_right: dict, ref):
+        """The tick's body, eager (the CPU, a mesh): insert both frames,
+        render both surfaces and, given a ref map `ref`, select its points
+        and track. Advances the surface states. Returns (surface left,
+        surface right, the host row of the pose, the per-round rms and the
+        point count as float64, or None untracked)."""
+        with span("tick.render"):
+            self.ts_state_left, self.ts_state_right, ts_l, ts_r = \
+                self.cycle.render_tick(
+                    self.ts_state_left, self.ts_state_right,
+                    self._event_batch(ev_left),
+                    self._event_batch(ev_right), t_sync)
+            ts_l = ts_l.to(self.dtype)
+            ts_r = ts_r.to(self.dtype)
+        count("tick.eager")
+        if ref is None:
+            return ts_l, ts_r, None
+        with span("tick.track"):
+            pts, ok = self.select_ref_points(ref[0], ref[1])
+            T_est, rms = self.track(
+                ts_l, self._tensor(self.T_world_frame),
+                self._tensor(self.T_world_cur), pts, ok)
+            # one transfer: the pose, the per-round rms, the points used
+            with span("tick.track.read"):
+                host = torch.cat([T_est.reshape(-1), rms,
+                                  torch.sum(ok).to(rms.dtype)[None]]).cpu()
+            count("host_reads")
+        return ts_l, ts_r, host.double().numpy()
+
+    def _tick_static(self, t_sync, ev_left: dict, ev_right: dict, ref):
+        """``_tick_plain``'s operations on static buffers: the same
+        results, bit for bit. The selection runs first, eagerly (through
+        the instance's ``select_ref_points``); the host arrays go through
+        one pinned buffer and one non-blocking copy; the surface states
+        are copied in only when they are not what this body last
+        published (a reset, a roll of ``process_ticks``, the other body).
+        On the card one replay of a CUDA graph, captured at the first tick
+        of each body and input signature (event capacities); elsewhere
+        the body runs eagerly into the buffers. The surfaces and the
+        states it publishes lie in storage made for this tick, which no
+        later tick writes."""
+        sel = None if ref is None else self.select_ref_points(ref[0],
+                                                              ref[1])
+        host = [np.asarray(ev[k]) for ev in (ev_left, ev_right)
+                for k, _ in _EVENT_FIELDS] + [
+            t_sync, self.T_world_frame, self.T_world_cur]
+        with span("tick.stage"):
+            st = self._static_tick(host, sel)
+            if st.pinned is not None:
+                # refill the pinned buffer only once its last copy has
+                # finished
+                st.ready.synchronize()
+            for d, h in zip(st.host, host):
+                np.copyto(d, h, casting="unsafe")
+            if st.pinned is not None:
+                st.inputs.data.copy_(st.pinned.data, non_blocking=True)
+                st.ready.record(torch.cuda.current_stream(self.device))
+            states = (self.ts_state_left, self.ts_state_right)
+            if any(a is not b for a, b in zip(states, st.published)):
+                for d, s in zip(st.state.views, _state_tensors(*states)):
+                    d.copy_(s)
+            if sel is not None:
+                for d, s in zip(st.sel.views, sel):
+                    d.copy_(s)
+        if self.device.type == "cuda":
+            if st.graph is None:
+                self._capture_tick(st)
+            with device_span("tick.replay"):
+                st.graph.replay()
+            for kernel, n in st.launches.items():
+                kernel.replayed += n
+            count("tick.replays")
+        else:
+            self._tick_into_buffers(st)
+            count("tick.eager")
+        with span("tick.publish"):
+            state = st.state.fresh()
+            half = len(state) // 2
+            self.ts_state_left = tsf.TimeSurfaceState(*state[:half])
+            self.ts_state_right = tsf.TimeSurfaceState(*state[half:])
+            st.published = (self.ts_state_left, self.ts_state_right)
+            ts_l, ts_r, *row = st.out.fresh()
+        if not row:
+            return ts_l, ts_r, None
+        with span("tick.track.read"):
+            row = row[0].cpu()
+        count("host_reads")
+        return ts_l, ts_r, row.double().numpy()
+
+    def _static_tick(self, host: list, sel) -> _StaticTick:
+        """The static buffers of this body and input signature, allocated
+        at its first tick."""
+        key = (tuple(np.shape(h) for h in host[:-3]),
+               None if sel is None
+               else tuple((tuple(t.shape), t.dtype) for t in sel))
+        st = self._ticks.get(key)
+        if st is None:
+            dev = self.device
+            specs = [(np.shape(h), dtype) for h, (_, dtype) in zip(
+                host, _EVENT_FIELDS * 2)]
+            specs += [((), torch.float32), ((4, 4), self.dtype),
+                      ((4, 4), self.dtype)]
+            inputs = _Packed(specs, dev)
+            on_card = dev.type == "cuda"
+            pinned = _Packed(specs, "cpu", pin=True) if on_card else None
+            st = self._ticks[key] = _StaticTick(
+                inputs=inputs, host=[v.numpy() for v in (
+                    pinned or inputs).views], pinned=pinned,
+                ready=torch.cuda.Event() if on_card else None,
+                state=_Packed.like(_state_tensors(
+                    self.ts_state_left, self.ts_state_right), dev),
+                sel=None if sel is None else _Packed.like(sel, dev))
+        return st
+
+    def _tick_body(self, state: list, inputs: list, sel):
+        """The tick on the given inputs, which it leaves as they are: the
+        calls of ``_tick_plain`` in its order, on device tensors. Returns
+        (the new states' tensors, [surface left, surface right] and,
+        given `sel` (pts, ok), the host row)."""
+        half = len(state) // 2
+        ev_l = tsf.EventBatch(*inputs[:5])
+        ev_r = tsf.EventBatch(*inputs[5:10])
+        t_sync, T_world_frame, T_world_cur = inputs[10:]
+        st_l, st_r, ts_l, ts_r = self.cycle.render_tick(
+            tsf.TimeSurfaceState(*state[:half]),
+            tsf.TimeSurfaceState(*state[half:]), ev_l, ev_r, t_sync)
+        out = [ts_l.to(self.dtype), ts_r.to(self.dtype)]
+        if sel is not None:
+            pts, ok = sel
+            T_est, rms = self.track(out[0], T_world_frame, T_world_cur, pts,
+                                    ok)
+            out.append(torch.cat([T_est.reshape(-1), rms,
+                                  torch.sum(ok).to(rms.dtype)[None]]))
+        return _state_tensors(st_l, st_r), out
+
+    def _tick_into_buffers(self, st: _StaticTick) -> None:
+        """What a graph captures: the tick on the static inputs, its new
+        states and outputs written into the static buffers."""
+        state, out = self._tick_body(
+            st.state.views, st.inputs.views,
+            None if st.sel is None else st.sel.views)
+        if st.out is None:
+            st.out = _Packed.like(out, self.device)
+        for buf, got in ((st.state, state), (st.out, out)):
+            for d, o in zip(buf.views, got):
+                d.copy_(o)
+
+    def _capture_tick(self, st: _StaticTick) -> None:
+        """Warm up on copies of the static inputs, then capture one tick
+        (as ``MappingCycle._capture``). Errors propagate and keep no
+        graph."""
+        with span("tick.capture"):
+            _, out = _warm_up(self.device, lambda: self._tick_body(
+                _copies(st.state.views), _copies(st.inputs.views),
+                None if st.sel is None else _copies(st.sel.views)))
+            if st.out is None:
+                st.out = _Packed.like(out, self.device)
+            st.graph, st.launches = _capture_graph(
+                lambda: self._tick_into_buffers(st))
 
     def _sgm_bootstrap(self, t_sync, ts_l, ts_r, ev_left, T_wf, out):
         """SGM bootstrap cycle, synchronous: its point count decides the

@@ -31,6 +31,14 @@ called eagerly on the same inputs, no eager K2 launch on a replay, one
 capture a capacity; published tensors never overwritten; a capture
 error that raises and keeps no graph.
 
+The live tick's body (``EsvoSystem._tick_static``, one CUDA graph a
+tick): the rpg closed loop through process_tick (the bootstrap, tracked
+and mapping ticks, a world correction, a watchdog reset) and DSEC's
+known-pose run, each tick's surfaces, kept states, pose, rms and point
+count bit for bit a second system's eager ticks; nothing host-side baked
+into a capture; published states and surfaces never overwritten; a
+replay a tick, one capture a body, no eager tick.
+
 The backend: the loop-closure descriptor, the ICP verification, bundle
 adjustment and the pose graph on the card against the CPU port, BA, the
 pose graph and their segment sums the same bits on every run, and one
@@ -792,7 +800,8 @@ def test_live_cycle_replays_equal_its_stages(smoke, live):
                                     else 0), r
     assert len(system.cycle._static) == 2
     assert counters["cycle.replays"] == len(log)
-    assert counters["graph.captures"] == 2
+    # the ticks' own graphs count too: one a body and event capacity
+    assert counters["graph.captures"] == 2 + len(system._ticks)
     assert "cycle.eager" not in counters
 
 
@@ -844,6 +853,174 @@ def test_live_cycle_capture_error_raises(smoke, live):
     cycle.working_cycle(*args)
     assert [st.graph is not None for st in cycle._static.values()] == [True]
     assert cycle.hist_slot == (slot + 1) % cycle.F
+
+
+# -- the live tick's body as one CUDA graph ---------------------------------
+
+def _plain_ticks(system):
+    """The system with its ticks' bodies on the plain stages, eager on
+    the card (``_tick_plain`` in ``_tick_static``'s place)."""
+    system._tick_static = system._tick_plain
+    return system
+
+
+def _same_tick(a: dict, b: dict, got, want) -> dict:
+    """Which parts of two systems' tick agree bit for bit: both surfaces,
+    both kept surface states, the pose after the guard, the per-round rms
+    and the point count (and the out keys)."""
+    arr = lambda out, key: np.asarray(out.get(key, np.zeros(0)))
+    return dict(
+        keys=set(a) == set(b),
+        surfaces=all(_same_bits(a[k], b[k]) for k in ("ts_left",
+                                                      "ts_right")),
+        states=all(_same_bits(x, y) for x, y in zip(
+            (*vars(got.ts_state_left).values(),
+             *vars(got.ts_state_right).values()),
+            (*vars(want.ts_state_left).values(),
+             *vars(want.ts_state_right).values()))),
+        pose=np.array_equal(got.T_world_cur, want.T_world_cur),
+        rms=np.array_equal(arr(a, "tracking_rms"), arr(b, "tracking_rms")),
+        points=a.get("lm_stats") == b.get("lm_stats"))
+
+
+def _run_live_ticks(smoke, name, rig, n_ticks, known_poses):
+    """Two systems on the card fed the same ticks of the `name` stream
+    (chip_smoke.make_stream) through process_tick from INITIALIZATION,
+    one with the ticks' graphs (the tracer on around its ticks), one on
+    the plain stages; without known poses a world correction after tick
+    14 and a watchdog reset on tick 30 (a jump back in time). Returns
+    (graphed system, eager system, log: a record a tick, the tracer's
+    counters over the graphed system's ticks, the tensors of the graphed
+    system's states and surfaces of tick 10, each with a copy taken
+    then)."""
+    from esvo_tpu_torch.utils import profiling as prof
+    cfg = smoke.SystemConfig.from_dict(getattr(smoke, name.upper()))
+    scene, ticks, frames = smoke.make_stream(name, rig, n_ticks=n_ticks)
+    got = smoke.EsvoSystem(rig, cfg, device="cuda")
+    want = _plain_ticks(smoke.EsvoSystem(rig, cfg, device="cuda"))
+    log, kept = [], None
+    prof.disable()
+    prof.take()
+    for k in range(n_ticks):
+        t = float(ticks[2] if k == 30 and not known_poses else ticks[k])
+        gt = smoke.interpolate_gt_pose(scene, t) if known_poses else None
+        fl, fr = _one(frames, k)
+        graphs = len(got._ticks)
+        rec = dict(k=k, t=t, T_cur=got.T_world_cur.copy(),
+                   status=got.status.value)
+        prof.enable()
+        try:
+            a = got.process_tick(t, fl, fr, gt_pose=gt,
+                                 do_mapping=k % 5 == 4)
+        finally:
+            prof.disable()
+        b = want.process_tick(t, fl, fr, gt_pose=gt, do_mapping=k % 5 == 4)
+        rec.update(new_body=len(got._ticks) - graphs,
+                   tracked="lm_stats" in a, mapped="map_estimates" in a,
+                   same=_same_tick(a, b, got, want))
+        log.append(rec)
+        if k == 10:
+            kept = [(x, x.clone()) for x in (
+                *vars(got.ts_state_left).values(),
+                *vars(got.ts_state_right).values(), a["ts_left"],
+                a["ts_right"])]
+        if k == 12:
+            assert all(_same_bits(x, copy) for x, copy in kept)
+        if k == 14 and not known_poses:
+            corr = np.eye(4)
+            corr[:3, 3] = [0.05, -0.02, 0.01]
+            for sy in (got, want):
+                sy.apply_world_correction(corr)
+    counters = prof.take()["counters"]
+    return got, want, log, counters, kept
+
+
+@pytest.fixture(scope="module")
+def live_ticks(smoke, rig):
+    """The rpg closed loop through process_tick, graphed against eager
+    (``_run_live_ticks``)."""
+    return _run_live_ticks(smoke, "rpg", rig, LIVE_TICKS, False)
+
+
+@pytest.fixture(scope="module")
+def dsec_known_pose_ticks(smoke, dsec_rig):
+    """DSEC's known-pose run (the mapper, the tracker bypassed) through
+    process_tick, graphed against eager (``_run_live_ticks``)."""
+    return _run_live_ticks(smoke, "dsec", dsec_rig,
+                           smoke.SCENES["dsec"]["ticks"], True)
+
+
+def test_live_ticks_replay_equal_the_eager_ticks(smoke, live_ticks):
+    """Every live rpg tick (the bootstrap's render-only ticks, tracked
+    ticks, mapping ticks, ticks after a world correction and after a
+    watchdog reset) is one graph replay whose surfaces, kept states,
+    pose, rms and point count are the eager stages' bits; each body
+    captures once, on its first tick, and graph.captures counts the
+    ticks' graphs and the cycle's; every tick counts a replay, none an
+    eager tick."""
+    got, want, log, counters, _ = live_ticks
+    for rec in log:
+        assert all(rec["same"].values()), rec
+    assert got.reset_count == want.reset_count == 2
+    assert got.status.value == "WORKING"
+    statuses = [r["status"] for r in log]
+    assert statuses[30] == "WORKING" and statuses[31] == "INITIALIZATION"
+    assert sum(r["tracked"] for r in log) >= 25
+    assert sum(r["mapped"] for r in log) >= 5
+    # a tracked body and a render-only body, one event capacity
+    assert sorted(key[1] is not None for key in got._ticks) == [False, True]
+    assert all(st.graph is not None for st in got._ticks.values())
+    assert [r["k"] for r in log if r["new_body"]] == [0, 5]
+    assert counters["tick.replays"] == len(log)
+    assert "tick.eager" not in counters
+    assert counters["graph.captures"] == len(got._ticks) + len(
+        got.cycle._static)
+
+
+def test_live_ticks_bake_in_no_host_value(smoke, live_ticks):
+    """Replays of one graph on ticks of other tick times and other poses
+    give the eager results: nothing host-side is frozen into a capture
+    (the tick time, the two poses, the events are inputs refilled each
+    tick)."""
+    got, _, log, _, _ = live_ticks
+    replays = [r for r in log if r["tracked"] and not r["new_body"]]
+    assert len({r["t"] for r in replays}) == len(replays) >= 20
+    assert len({r["T_cur"].tobytes() for r in replays}) >= 20
+    assert all(r["same"]["pose"] and r["same"]["surfaces"]
+               for r in replays)
+
+
+def test_live_ticks_publish_copies(smoke, live_ticks):
+    """Tensors taken from the surface states and out["ts_left"] /
+    out["ts_right"] on tick 10 read the same after every later tick;
+    no published state shares storage with a buffer a graph writes."""
+    got, _, _, _, kept = live_ticks
+    assert all(_same_bits(x, copy) for x, copy in kept)
+    static = {b.data.untyped_storage().data_ptr()
+              for st in got._ticks.values()
+              for b in (st.inputs, st.state, st.sel, st.out) if b is not None}
+    published = {x.untyped_storage().data_ptr() for x in (
+        *vars(got.ts_state_left).values(),
+        *vars(got.ts_state_right).values(), *(x for x, _ in kept))}
+    assert not static & published
+
+
+def test_known_pose_ticks_replay_equal_the_eager_ticks(
+        smoke, dsec_known_pose_ticks):
+    """DSEC's known-pose ticks (the render-only body at 640x480 and
+    40,000 events a camera, over the bootstrap and two WORKING cycles)
+    are replays bit for bit the eager stages; one capture, a replay a
+    tick, no eager tick."""
+    got, _, log, counters, kept = dsec_known_pose_ticks
+    for rec in log:
+        assert all(rec["same"].values()), rec
+    assert got.status.value == "WORKING"
+    assert [r["k"] for r in log if r["mapped"]] == [9, 14]
+    assert not any(r["tracked"] for r in log)
+    assert [key[1] for key in got._ticks] == [None]
+    assert counters["tick.replays"] == len(log)
+    assert "tick.eager" not in counters
+    assert all(_same_bits(x, copy) for x, copy in kept)
 
 
 # -- the backend and the event simulator (chip_smoke.py's cases) ------------

@@ -18,6 +18,11 @@
   eager on the CPU) against the cycle's stages called directly, through
   process_tick and process_ticks: every output, the stats and the global
   map bit for bit; published tensors never change afterwards.
+- The live tick's body on static buffers (``EsvoSystem._tick_static``,
+  eager on the CPU) against the plain stages (``_tick_plain``): every
+  tick's outputs, the kept surface states, the trajectory, the scores
+  drawn and the ref maps selected bit for bit; published states and
+  surfaces never change afterwards.
 - record_pose's guards, as tests/test_system.py checks them; reconfigure;
   and that nothing falls back to the CPU.
 """
@@ -370,6 +375,105 @@ def test_buffered_cycle_equals_its_stages(loop_world, roll):
         _assert_same(before, copy)
     ring = [p.untyped_storage().data_ptr() for p, _, _ in got._ref_maps]
     assert len(set(ring)) == len(ring)
+
+
+def _recording(system, log: list) -> None:
+    """Wrap the system's draw_ref_scores and select_ref_points (instance
+    attributes over the methods, as the benchmark's tick driver does):
+    each call's scores and ref map go to `log`."""
+    draw, select = system.draw_ref_scores, system.select_ref_points
+
+    def draw_scores():
+        log.append(("scores", draw()))
+        return log[-1][1]
+
+    def select_points(pts_world, pt_valid):
+        log.append(("ref_map", (pts_world, pt_valid)))
+        return select(pts_world, pt_valid)
+    system.draw_ref_scores, system.select_ref_points = draw_scores, \
+        select_points
+
+
+def _padded(frame: dict, pad: int) -> dict:
+    """The frame at a larger capacity: `pad` invalid lanes appended."""
+    return {k: np.concatenate([v, np.zeros(pad, v.dtype)])
+            for k, v in frame.items()}
+
+
+def test_static_tick_equals_its_stages(loop_world):
+    """The live tick's body on static buffers (``_tick_static``, eager on
+    the CPU) against the plain stages (``_tick_plain``) in a second
+    system: every tick's outputs (both surfaces, the pose's rms and
+    point count among them), the kept surface states, the trajectory,
+    the stats and the window bit for bit, and the same scores drawn
+    and ref maps selected, over the bootstrap, tracked and mapping
+    ticks, a world correction, a roll of process_ticks, a second event
+    capacity, a known-pose tick and a watchdog reset. The states and
+    surfaces published on one tick read the same two ticks later."""
+    rig, scene, ticks, (fl, fr) = loop_world
+    systems = [EsvoSystem(rig, _loop_config(), device="cpu")
+               for _ in range(2)]
+    got, ref = systems
+    # the card's body on the CPU: process_tick takes _tick_plain here
+    got._tick_plain = got._tick_static
+    logs = ([], [])
+    for sy, log in zip(systems, logs):
+        _recording(sy, log)
+    kept = None
+    for k in range(35):
+        t = float(ticks[k])
+        if k == 26:
+            t = float(ticks[3])            # the watchdog resets
+        if k == 14:
+            corr = np.eye(4)
+            corr[:3, 3] = [0.02, -0.01, 0.03]
+            for sy in systems:
+                sy.apply_world_correction(corr)
+        if 15 <= k < 20:
+            if k == 15:
+                sl = slice(15, 20)
+                outs = [sy.process_ticks(
+                    ticks[sl], {n: v[sl] for n, v in fl.items()
+                                if n != "dropped"},
+                    {n: v[sl] for n, v in fr.items() if n != "dropped"})
+                    for sy in systems]
+                _assert_same(*outs, path="roll")
+            continue
+        pad = 200 if k == 21 else 0
+        gt = tsyn.interpolate_gt_pose(scene, t) if k == 25 else None
+        outs = [sy.process_tick(t, _padded(_frame(fl, k), pad),
+                                _padded(_frame(fr, k), pad), gt_pose=gt,
+                                do_mapping=k % 5 == 4) for sy in systems]
+        _assert_same(*outs, path=f"tick {k}")
+        for a, b in ((got.ts_state_left, ref.ts_state_left),
+                     (got.ts_state_right, ref.ts_state_right)):
+            _assert_same(a, b, path=f"tick {k} states")
+        if k == 10:
+            assert "lm_stats" in outs[0]
+            kept = [(t_, t_.clone()) for t_ in (
+                *vars(got.ts_state_left).values(),
+                *vars(got.ts_state_right).values(), outs[0]["ts_left"],
+                outs[0]["ts_right"])]
+        if k == 12:
+            for before, copy in kept:
+                _assert_same(before, copy)
+    assert got.reset_count == ref.reset_count == 2
+    assert got.status == SystemStatus.WORKING
+    for name in ("stats", "status", "T_world_frame", "history",
+                 "_ref_maps"):
+        _assert_same(getattr(got, name), getattr(ref, name), name)
+    _assert_same(got.trajectory(), ref.trajectory())
+    _assert_same(*logs, path="draws")
+    assert sum(kind == "scores" for kind, _ in logs[0]) > 10
+    # bodies: tracked and render-only at 3,000 events, tracked at 3,200
+    assert sorted((k[1] is not None, k[0][0]) for k in got._ticks) == [
+        (False, (3000,)), (True, (3000,)), (True, (3200,))]
+    assert not ref._ticks
+    static = {b.data.untyped_storage().data_ptr() for st in
+              got._ticks.values() for b in (st.state, st.out)}
+    assert not static & {t_.untyped_storage().data_ptr() for t_ in (
+        *vars(got.ts_state_left).values(), *outs[0].values())
+        if isinstance(t_, torch.Tensor)}
 
 
 # -- record_pose guards, as tests/test_system.py -----------------------------

@@ -12,9 +12,12 @@ program records with it, on the CPU.
   tests/test_torch_system.py: one ``tick`` root a tick with its children
   under it, ``mapped`` on exactly the ticks that dispatched a WORKING
   cycle, its stage and publish spans under ``tick.map``, ``cycle.eager``
-  on each of them (no graph on the CPU), and ``host_reads`` on a mapping
-  tick equal to the read sites (the counters' row in the finalize, 2 in
-  the global map, 1 for tracking).
+  on each of them (no graph on the CPU), ``tick.eager`` on every tick,
+  and ``host_reads`` on a mapping tick equal to the read sites (the
+  counters' row in the finalize, 2 in the global map, 1 for tracking).
+  The tick's body on static buffers (the card's, eager on the CPU):
+  ``tick.stage`` / ``tick.publish`` in the place of ``tick.render`` /
+  ``tick.track``, ``tick.eager`` a tick.
 - ``ResidentLoop`` on the CPU (its roll runs eagerly): ``resident.run``,
   ``stage`` and its parts, ``step`` and ``sync``, ``resident.ticks``
   equal to R * K, and no ``resident.replay`` (no CUDA).
@@ -295,12 +298,52 @@ def test_process_tick_spans(world):
         # the CPU runs the cycle's body eagerly: no graph, no replay
         assert root["counts"].get("cycle.eager", 0) == \
             root["attrs"]["mapped"], k
+        # and the tick's body: one eager tick each
+        assert root["counts"]["tick.eager"] == 1, k
     assert roots[9]["counts"]["host_reads"] == 4
     assert roots[14]["counts"]["host_reads"] == 3
     assert got["counters"]["host_reads"] == sum(
         r["counts"].get("host_reads", 0) for r in roots)
     assert got["counters"]["cycle.eager"] == 2
-    assert not {"cycle.replays", "graph.captures"} & set(got["counters"])
+    assert got["counters"]["tick.eager"] == N_TICKS
+    assert not {"cycle.replays", "tick.replays", "graph.captures"} & set(
+        got["counters"])
+
+
+def test_static_tick_spans(world):
+    """The tick's body on static buffers (the card's, run eagerly on the
+    CPU): ``tick.stage`` and ``tick.publish`` under ``tick`` in the place
+    of ``tick.render`` / ``tick.track``, ``tick.track.read`` under
+    ``tick`` on a tracked tick, ``tick.eager`` once a tick and no replay,
+    capture or device span."""
+    rig, scene, ticks, (fl, fr) = world
+    system = EsvoSystem(rig, _config(), device="cpu", seed=3)
+    system._tick_plain = system._tick_static
+    prof.enable()
+    for k in range(10):
+        system.process_tick(float(ticks[k]), _frames(fl, k), _frames(fr, k),
+                            do_mapping=k % MAP_EVERY == 4)
+    got = prof.take()
+    spans = got["spans"]
+    roots = [s for s in spans if s["parent"] is None]
+    assert [s["name"] for s in roots] == ["tick"] * 10
+    groups = _by_id(spans)
+    for k, root in enumerate(roots):
+        kids = sorted(s["name"] for s in groups[root["id"]]
+                      if s["parent"] == "tick")
+        want = ["tick.publish", "tick.stage"] + (["tick.track.read"]
+                                                 if k >= 5 else [])
+        want += {4: ["tick.bootstrap"], 9: ["tick.finalize", "tick.map"]
+                 }.get(k, [])
+        assert kids == sorted(want), (k, kids)
+        assert root["counts"]["tick.eager"] == 1, k
+        assert root["counts"].get("host_reads", 0) == (
+            int(k >= 5) + 3 * (k == 9) + 2 * (k == 4)), k
+    assert not any("device_ms" in s for s in spans)
+    assert not {"tick.render", "tick.track", "tick.capture"} & {
+        s["name"] for s in spans}
+    assert got["counters"]["tick.eager"] == 10
+    assert not {"tick.replays", "graph.captures"} & set(got["counters"])
 
 
 def test_resident_loop_spans(world):
